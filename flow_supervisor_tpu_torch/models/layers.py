@@ -1,0 +1,95 @@
+"""Conv / norm building blocks (counterpart of flow_supervisor_tpu/models/layers.py).
+
+Convs are plain ``nn.Conv2d`` with torch-style symmetric k//2 padding, so
+strided convs downsample exactly like the reference. Initialization matches
+the JAX package:
+
+- extractor convs: kernel ~ truncated normal, He fan-out
+  (VarianceScaling(2.0, fan_out, truncated_normal)); bias ~ U(+-1/sqrt(fan_in));
+- update convs: kernel and bias ~ U(+-1/sqrt(fan_in)), fan_in = c_in * kh * kw.
+
+Norms: ``instance`` is the affine-free instance norm (eps 1e-5, fp32
+statistics) of kernels/norm.py; ``batch`` is ``nn.BatchNorm2d`` (eps 1e-5,
+running statistics at inference); ``none`` is the identity.
+
+Activations inside the models are NCHW tensors in ``torch.channels_last``
+memory format, so ``nhwc`` hands the NHWC kernels a view without a copy.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from flow_supervisor_tpu_torch.kernels.norm import instance_norm
+
+
+def _pair(k):
+    return tuple(k) if isinstance(k, (tuple, list)) else (k, k)
+
+
+def conv2d(c_in: int, c_out: int, k, stride: int = 1) -> nn.Conv2d:
+    """Conv with torch-style symmetric k//2 padding (ExtractorConv / UpdateConv)."""
+    kh, kw = _pair(k)
+    return nn.Conv2d(c_in, c_out, (kh, kw), stride, (kh // 2, kw // 2))
+
+
+@torch.no_grad()
+def init_conv_(conv: nn.Conv2d, kind: str, generator: torch.Generator | None = None) -> None:
+    """Re-draw a conv's parameters with the JAX package's ``kind``
+    ('extractor' or 'update') initializers."""
+    c_out, c_in, kh, kw = conv.weight.shape
+    fan_in = c_in * kh * kw
+    limit = 1.0 / math.sqrt(fan_in)
+    if kind == "extractor":
+        # truncated at +-2 std; flax rescales the std by the truncated normal's
+        # own std (0.87962566103423978) so the variance is 2 / fan_out
+        std = math.sqrt(2.0 / (c_out * kh * kw)) / 0.87962566103423978
+        nn.init.trunc_normal_(conv.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+    else:
+        nn.init.uniform_(conv.weight, -limit, limit, generator=generator)
+    nn.init.uniform_(conv.bias, -limit, limit, generator=generator)
+
+
+def init_weights_(
+    module: nn.Module, kind: str, generator: torch.Generator | None = None
+) -> None:
+    """Initialize every conv under ``module`` with the ``kind`` initializers
+    (BatchNorm keeps torch's defaults, which equal flax's: scale 1, bias 0,
+    mean 0, var 1)."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            init_conv_(m, kind, generator)
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW (channels_last) -> NHWC view; copies only if x is in another format."""
+    return x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+
+
+def nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> NCHW view (channels_last when x is contiguous)."""
+    return x.permute(0, 3, 1, 2)
+
+
+class InstanceNorm(nn.Module):
+    """Affine-free instance norm (+ optional relu) through kernels K3 + K4."""
+
+    def __init__(self, relu: bool = False):
+        super().__init__()
+        self.relu = relu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nchw(instance_norm(nhwc(x), relu=self.relu))
+
+
+def make_norm(kind: str, channels: int) -> nn.Module:
+    """The reference's norm_fn choices for the slice: instance / batch / none."""
+    if kind == "instance":
+        return InstanceNorm()
+    if kind == "batch":
+        return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.01)
+    if kind == "none":
+        return nn.Identity()
+    raise ValueError(f"norm_fn {kind} not implemented in the port")

@@ -1,0 +1,112 @@
+"""All-pairs correlation, pooled pyramid and the gather lookup oracle
+(counterpart of flow_supervisor_tpu/ops/corr.py).
+
+- ``all_pairs_correlation``: corr[b, i, j, k, l] = <f1[b,i,j], f2[b,k,l]> / sqrt(C),
+  accumulated in fp32.
+- ``build_corr_pyramid_from_fmaps``: level i correlates f1 with f2 average-pooled
+  by 2^i (kernel = stride, TF 'SAME' padding, edge windows divide by their
+  valid taps). Pooling commutes with the inner product, so this equals pooling
+  the full volume.
+- ``corr_pyramid_lookup_gather``: per level, a (2r+1)^2 bilinear window at
+  coords / 2^level; out-of-bounds taps read 0; channels dx-major / dy-minor.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def all_pairs_correlation(
+    fmap1: torch.Tensor, fmap2: torch.Tensor, out_dtype=torch.float32
+) -> torch.Tensor:
+    """[B, H1, W1, C] x [B, H2, W2, C] -> [B, H1, W1, H2, W2] = f1 . f2^T / sqrt(C).
+
+    Inputs are upcast to fp32 before the product, so bf16 features multiply
+    exactly and accumulate in fp32 (the JAX package's preferred_element_type)."""
+    b, h1, w1, c = fmap1.shape
+    _, h2, w2, c2 = fmap2.shape
+    if c != c2:
+        raise ValueError(f"channel mismatch: {tuple(fmap1.shape)} vs {tuple(fmap2.shape)}")
+    a = fmap1.reshape(b, h1 * w1, c).float()
+    bb = fmap2.reshape(b, h2 * w2, c).float()
+    corr = torch.matmul(a, bb.transpose(1, 2)) / torch.sqrt(torch.tensor(float(c)))
+    return corr.to(out_dtype).reshape(b, h1, w1, h2, w2)
+
+
+def _same_pads(size: int, k: int) -> tuple[int, int]:
+    """TF 'SAME' (before, after) padding for kernel = stride = k."""
+    out = -(-size // k)
+    total = max(out * k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _avg_pool_fmap_same(fmap: torch.Tensor, k: int) -> torch.Tensor:
+    """TF-'SAME' count-aware average pool over the spatial dims of an NHWC map."""
+    b, h, w, c = fmap.shape
+    (pt, pb), (pl, pr) = _same_pads(h, k), _same_pads(w, k)
+    x = fmap.permute(0, 3, 1, 2).float()
+    ones = torch.ones((1, 1, h, w), dtype=torch.float32, device=fmap.device)
+    pads = (pl, pr, pt, pb)
+    summed = F.avg_pool2d(F.pad(x, pads), k, k, divisor_override=1)
+    counts = F.avg_pool2d(F.pad(ones, pads), k, k, divisor_override=1)
+    return (summed / counts).permute(0, 2, 3, 1).to(fmap.dtype)
+
+
+def build_corr_pyramid_from_fmaps(
+    fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int = 4,
+    out_dtype=torch.float32,
+) -> list[torch.Tensor]:
+    """Pyramid of volumes [B, h1, w1, h2_l, w2_l] via pooled feature maps."""
+    pyramid = [all_pairs_correlation(fmap1, fmap2, out_dtype)]
+    scale = 2
+    for _ in range(num_levels - 1):
+        pooled = _avg_pool_fmap_same(fmap2, scale)
+        pyramid.append(all_pairs_correlation(fmap1, pooled, out_dtype))
+        scale *= 2
+    return pyramid
+
+
+def _lookup_window_offsets(radius: int, device=None) -> torch.Tensor:
+    """[(2r+1)^2, 2] (x, y) offsets, dx-major / dy-minor."""
+    k = 2 * radius + 1
+    d = torch.arange(k, device=device, dtype=torch.float32) - radius
+    dx, dy = torch.meshgrid(d, d, indexing="ij")
+    return torch.stack([dx, dy], dim=-1).reshape(k * k, 2)
+
+
+def _lookup_level(vol: torch.Tensor, coords: torch.Tensor, radius: int) -> torch.Tensor:
+    """vol [B, h1, w1, h2, w2]; coords [B, h1, w1, 2] at this level's scale."""
+    b, h1, w1, h2, w2 = vol.shape
+    k2 = (2 * radius + 1) ** 2
+    flat = vol.reshape(b, h1 * w1, h2 * w2)
+    delta = _lookup_window_offsets(radius, coords.device)
+    q = coords.reshape(b, h1 * w1, 1, 2).float() + delta[None, None]
+    x, y = q[..., 0], q[..., 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    dx, dy = x - x0, y - y0
+
+    def tap(xi, yi, wgt):
+        valid = (xi >= 0) & (xi <= w2 - 1) & (yi >= 0) & (yi <= h2 - 1)
+        xi_c = torch.clamp(xi, 0, w2 - 1).long()
+        yi_c = torch.clamp(yi, 0, h2 - 1).long()
+        idx = (yi_c * w2 + xi_c).reshape(b, h1 * w1, k2)
+        vals = torch.gather(flat, 2, idx).float()
+        return vals * torch.where(valid, wgt, torch.zeros_like(wgt))
+
+    out = (
+        tap(x0, y0, (1.0 - dx) * (1.0 - dy))
+        + tap(x0 + 1.0, y0, dx * (1.0 - dy))
+        + tap(x0, y0 + 1.0, (1.0 - dx) * dy)
+        + tap(x0 + 1.0, y0 + 1.0, dx * dy)
+    )
+    return out.reshape(b, h1, w1, k2)
+
+
+def corr_pyramid_lookup_gather(
+    pyramid: list[torch.Tensor], coords: torch.Tensor, radius: int = 4
+) -> torch.Tensor:
+    """Gather-based lookup over volumes (correctness oracle): [B, h1, w1, L*(2r+1)^2]."""
+    outs = [
+        _lookup_level(vol, coords / (2.0 ** i), radius) for i, vol in enumerate(pyramid)
+    ]
+    return torch.cat(outs, dim=-1)

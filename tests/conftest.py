@@ -35,6 +35,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (skips without a CUDA device)"
+    )
+
+
 @pytest.fixture()
 def fake_root(tmp_path, monkeypatch):
     from flow_supervisor_tpu.data.synthetic import build_synthetic_tree
