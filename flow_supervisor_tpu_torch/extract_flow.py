@@ -4,6 +4,7 @@ and write Middlebury ``.flo`` files (counterpart of the repository's
 
     python -m flow_supervisor_tpu_torch.extract_flow --source_dir frames/ \
         --target_dir out/ [--params raft.npz] [--iters 12] [--seed 0]
+        [--lookup_backend plane|fused|pallas]
 
 Frames are ``.npy`` arrays [H, W, 3], float in [0, 1] or uint8, taken in
 sorted file-name order; pair (i, i+1) writes ``<target_dir>/<frame i>.flo``.
@@ -23,7 +24,7 @@ import torch
 from flow_supervisor_tpu_torch.convert import from_flax, load_flax_npz
 from flow_supervisor_tpu_torch.evaluation import run_pair
 from flow_supervisor_tpu_torch.flo import write_flo
-from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
+from flow_supervisor_tpu_torch.models.raft import LOOKUP_BACKENDS, RAFT, RAFTConfig
 
 
 def _frame(path: str) -> np.ndarray:
@@ -35,9 +36,10 @@ def _frame(path: str) -> np.ndarray:
     return x.astype(np.float32)
 
 
-def build_model(params: str | None, seed: int, device) -> RAFT:
+def build_model(params: str | None, seed: int, device, lookup_backend: str = "plane") -> RAFT:
     """fp32 RAFT on ``device``: weights from a JAX .npz, or random from ``seed``."""
-    model = RAFT(RAFTConfig(), generator=torch.Generator().manual_seed(seed))
+    model = RAFT(RAFTConfig(lookup_backend=lookup_backend),
+                 generator=torch.Generator().manual_seed(seed))
     if params:
         model.load_state_dict(from_flax(*load_flax_npz(params)))
     return model.to(device)
@@ -50,10 +52,11 @@ def main(argv=None) -> int:
     p.add_argument("--params", default=None, help="npz of JAX params; omit for random weights")
     p.add_argument("--iters", type=int, default=12)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--lookup_backend", default="plane", choices=LOOKUP_BACKENDS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("extract_flow needs a CUDA device; none is available")
-    model = build_model(args.params, args.seed, torch.device("cuda"))
+    model = build_model(args.params, args.seed, torch.device("cuda"), args.lookup_backend)
     frames = sorted(f for f in os.listdir(args.source_dir) if f.endswith(".npy"))
     os.makedirs(args.target_dir, exist_ok=True)
     for a, b in zip(frames, frames[1:]):

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels.
 
-Every ``*.cu`` / ``*.cuh`` under ``flow_supervisor_tpu_torch/csrc/`` is compiled
-at first use by ``nvcc`` for ``sm_90a`` into one shared library with a plain C
-interface, bound with ``ctypes``. The library lands in
+Every ``*.cu`` under ``flow_supervisor_tpu_torch/csrc/`` is compiled at first
+use by ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started together)
+and linked into one shared library with a plain C interface, bound with
+``ctypes``. The library lands in
 ``flow_supervisor_tpu_torch/_build/`` (git-ignored), named by a hash of the
 sources, so an unchanged tree does not rebuild. Only the repository's sources
 and the CUDA toolkit's headers go into the build. A failed build raises with
@@ -28,7 +29,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -38,6 +39,14 @@ _F = ctypes.c_float
 SIGNATURES = {
     # planes[L], h2[L], w2[L], levels, coords, out, bq, radius, in_dtype, out_dtype, stream
     "fst_corr_plane_lookup": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # f1, f2[L], h2[L], w2[L], levels, coords, out, bq, q_per_b, C, radius, in_dtype,
+    # out_dtype, stream
+    "fst_corr_fused_all": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # f1, f2, h2, w2, level, coords, out, out_stride, bq, q_per_b, C, radius, in_dtype,
+    # out_dtype, stream
+    "fst_corr_fused_level": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # plane, h2, w2, coords, out, bq, radius, in_dtype, stream
+    "fst_corr_window": [_P, _I, _I, _P, _P, _I, _I, _I, _P],
     # x, w_hwio, bias, y, partials, stats, B, H, W, C, Cout, dtype, eps, stream
     "fst_conv3x3_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # x, partials, stats, B, M, C, dtype, eps, stream
@@ -91,21 +100,29 @@ def build() -> Path:
         build_seconds = 0.0
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    with tempfile.NamedTemporaryFile(dir=BUILD_DIR, suffix=".so", delete=False) as tmp:
-        tmp_path = tmp.name
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp_path, *cu]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for cmd, proc in procs:  # wait for every compile before reporting
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        so = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp_path, out)
-    finally:
-        if os.path.exists(tmp_path):
-            os.remove(tmp_path)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        os.replace(so, out)
     build_seconds = time.perf_counter() - t0
     return out
 

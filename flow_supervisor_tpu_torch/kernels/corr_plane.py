@@ -19,7 +19,11 @@ import ctypes
 import torch
 
 from flow_supervisor_tpu_torch.kernels import _build
-from flow_supervisor_tpu_torch.ops.corr import build_corr_pyramid_from_fmaps
+from flow_supervisor_tpu_torch.ops.corr import (
+    build_corr_pyramid_from_fmaps,
+    combine_support,
+    window_support,
+)
 
 launches = 0
 
@@ -41,33 +45,10 @@ def corr_lookup_plain(
 ) -> torch.Tensor:
     """Plain PyTorch K1: planes [BQ, h2, w2] per level, coords [BQ, 2] fp32
     (x, y) at level 0 -> [BQ, L * (2r+1)^2] in out_dtype."""
-    bq = coords.shape[0]
-    k = 2 * radius + 1
-    sup = 2 * radius + 2
-    ar = torch.arange(sup, device=coords.device)
     outs = []
     for lvl, plane in enumerate(planes):
-        h2, w2 = plane.shape[1], plane.shape[2]
         c = coords.float() * (1.0 / 2.0 ** lvl)
-        fl = torch.floor(c)
-        fx = (c[:, 0] - fl[:, 0])[:, None, None]
-        fy = (c[:, 1] - fl[:, 1])[:, None, None]
-        bx = torch.clamp(fl[:, 0] - radius, -sup, w2).long()
-        by = torch.clamp(fl[:, 1] - radius, -sup, h2).long()
-        xs = bx[:, None] + ar  # [BQ, sup]
-        ys = by[:, None] + ar
-        valid = ((ys >= 0) & (ys < h2))[:, :, None] & ((xs >= 0) & (xs < w2))[:, None, :]
-        idx = ys.clamp(0, h2 - 1)[:, :, None] * w2 + xs.clamp(0, w2 - 1)[:, None, :]
-        patch = torch.gather(plane.reshape(bq, h2 * w2), 1, idx.reshape(bq, -1))
-        patch = patch.reshape(bq, sup, sup).float()
-        patch = torch.where(valid, patch, torch.zeros_like(patch))  # [BQ, y, x]
-        out = (
-            (1.0 - fy) * (1.0 - fx) * patch[:, :k, :k]
-            + (1.0 - fy) * fx * patch[:, :k, 1:]
-            + fy * (1.0 - fx) * patch[:, 1:, :k]
-            + fy * fx * patch[:, 1:, 1:]
-        )  # [BQ, dy, dx]
-        outs.append(out.transpose(1, 2).reshape(bq, k * k))  # dx-major
+        outs.append(combine_support(window_support(plane, c, radius), c, radius))
     return torch.cat(outs, dim=1).to(out_dtype)
 
 

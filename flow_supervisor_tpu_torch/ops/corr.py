@@ -9,6 +9,10 @@
   the full volume.
 - ``corr_pyramid_lookup_gather``: per level, a (2r+1)^2 bilinear window at
   coords / 2^level; out-of-bounds taps read 0; channels dx-major / dy-minor.
+- ``window_support`` / ``combine_support``: the same window from per-query
+  planes in two plain steps, the (2r+2)^2 support patch and its 4-tap
+  bilinear combine (the plain versions behind the plane, fused and pallas
+  lookup kernels).
 """
 from __future__ import annotations
 
@@ -110,3 +114,40 @@ def corr_pyramid_lookup_gather(
         _lookup_level(vol, coords / (2.0 ** i), radius) for i, vol in enumerate(pyramid)
     ]
     return torch.cat(outs, dim=-1)
+
+
+def window_support(plane: torch.Tensor, coords: torch.Tensor, radius: int) -> torch.Tensor:
+    """plane [BQ, h2, w2], coords [BQ, 2] (x, y) at the plane's scale ->
+    [BQ, 2r+2, 2r+2] fp32 support patch [y, x] from the window base
+    clip(floor(c) - r, -(2r+2), dim); taps outside the plane read 0."""
+    bq, h2, w2 = plane.shape
+    sup = 2 * radius + 2
+    ar = torch.arange(sup, device=coords.device)
+    fl = torch.floor(coords.float())
+    bx = torch.clamp(fl[:, 0] - radius, -sup, w2).long()
+    by = torch.clamp(fl[:, 1] - radius, -sup, h2).long()
+    xs = bx[:, None] + ar  # [BQ, sup]
+    ys = by[:, None] + ar
+    valid = ((ys >= 0) & (ys < h2))[:, :, None] & ((xs >= 0) & (xs < w2))[:, None, :]
+    idx = ys.clamp(0, h2 - 1)[:, :, None] * w2 + xs.clamp(0, w2 - 1)[:, None, :]
+    patch = torch.gather(plane.reshape(bq, h2 * w2), 1, idx.reshape(bq, -1))
+    patch = patch.reshape(bq, sup, sup).float()
+    return torch.where(valid, patch, torch.zeros_like(patch))
+
+
+def combine_support(support: torch.Tensor, coords: torch.Tensor, radius: int) -> torch.Tensor:
+    """4-tap bilinear combine of support [BQ, 2r+2, 2r+2] at the fractional
+    part of coords [BQ, 2] -> [BQ, (2r+1)^2] fp32, channels dx-major."""
+    k = 2 * radius + 1
+    c = coords.float()
+    frac = c - torch.floor(c)
+    fx = frac[:, 0][:, None, None]
+    fy = frac[:, 1][:, None, None]
+    p = support
+    out = (
+        (1.0 - fy) * (1.0 - fx) * p[:, :k, :k]
+        + (1.0 - fy) * fx * p[:, :k, 1:]
+        + fy * (1.0 - fx) * p[:, 1:, :k]
+        + fy * fx * p[:, 1:, 1:]
+    )  # [BQ, dy, dx]
+    return out.transpose(1, 2).reshape(-1, k * k)

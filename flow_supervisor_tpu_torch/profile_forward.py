@@ -1,7 +1,8 @@
 """Where the time of one RAFT inference forward goes, on the GPU.
 
     python -m flow_supervisor_tpu_torch.profile_forward [--hw 448 1024] [--iters 12]
-        [--batch 1] [--dtype bfloat16] [--trace out.json]
+        [--batch 1] [--dtype bfloat16] [--lookup_backend plane|fused|pallas]
+        [--trace out.json]
 
 Prints one JSON object: the forward's time split by stage (CUDA events
 around fnet, the correlation build, cnet, and the refinement loop with its
@@ -17,12 +18,15 @@ import json
 
 import torch
 
-from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
+from flow_supervisor_tpu_torch.models.raft import LOOKUP_BACKENDS, RAFT, RAFTConfig
 from flow_supervisor_tpu_torch.ops.coords import coords_grid, downsample_shape
 
 # substrings of kernel names -> category (first match wins)
 CATEGORIES = (
     ("K1 corr_plane", ("corr_plane_kernel",)),
+    ("K6 corr_fused_all", ("corr_fused_all_kernel",)),
+    ("K7 corr_fused_level", ("corr_fused_level_kernel",)),
+    ("K10 corr_window", ("corr_window_kernel",)),
     ("K2 conv3x3_stats", ("conv3x3_stats_kernel",)),
     ("K3/K4 instance norm", ("stats_partial_kernel", "stats_finalize_kernel", "apply_kernel")),
     ("cuDNN conv", ("fprop", "conv", "implicit", "winograd", "cudnn")),
@@ -123,6 +127,7 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=12)
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    p.add_argument("--lookup_backend", default="plane", choices=LOOKUP_BACKENDS)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trace", default=None, help="write a chrome trace here")
     args = p.parse_args(argv)
@@ -131,7 +136,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     dtype = getattr(torch, args.dtype)
     gen = torch.Generator().manual_seed(args.seed)
-    model = RAFT(RAFTConfig(iters=args.iters, dtype=dtype, corr_dtype=dtype), generator=gen)
+    cfg = RAFTConfig(iters=args.iters, dtype=dtype, corr_dtype=dtype,
+                     lookup_backend=args.lookup_backend)
+    model = RAFT(cfg, generator=gen)
     model.to(dev)
     img1 = torch.rand(args.batch, *args.hw, 3, generator=gen).to(dev)
     img2 = torch.rand(args.batch, *args.hw, 3, generator=gen).to(dev)
@@ -146,7 +153,8 @@ def main(argv=None) -> int:
     fwd = sum(_events_ms(forward) for _ in range(10)) / 10
     out = {
         "gpu": torch.cuda.get_device_name(0), "hw": list(args.hw), "batch": args.batch,
-        "iters": args.iters, "dtype": args.dtype, "fwd_ms": fwd,
+        "iters": args.iters, "dtype": args.dtype, "lookup_backend": args.lookup_backend,
+        "fwd_ms": fwd,
         "stage_ms": stages, "profile": profile(forward, trace=args.trace),
     }
     print(json.dumps(out))

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from flow_supervisor_tpu_torch.kernels import conv3x3, corr_plane, norm
+from flow_supervisor_tpu_torch.kernels import conv3x3, corr_fused, corr_lookup_v2, corr_plane, norm
+from flow_supervisor_tpu_torch.ops.corr import window_support
 
 R = 4
 
@@ -78,3 +79,56 @@ def test_cuda_k3_k4_match_plain(cuda, dtype, relu):
     y_ref = norm.instance_norm_apply_plain(x, st_ref, relu)
     tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
     torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+
+
+def _fused_inputs(b, c, dtype, dev, seed):
+    f1, f2, coords = _lookup_inputs(b=b, h8=7, w8=11, c=c, seed=seed)
+    coords[0, 0, 0] = (1e9, -1e9)  # far out of bounds: reads 0, no overflow
+    pyr = corr_fused.build_fused_pyramid(
+        torch.from_numpy(f1).to(dev, dtype), torch.from_numpy(f2).to(dev, dtype), 4
+    )
+    return pyr, torch.from_numpy(coords).reshape(-1, 2).to(dev)
+
+
+# C=64: 16-byte loads; C=36: the scalar path (C % 8 != 0); C=320: two 256-channel chunks
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 36, 320])
+def test_cuda_k6_matches_plain(cuda, dtype, c):
+    pyr, coords = _fused_inputs(1, c, dtype, cuda, 12)
+    got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, R, dtype).float()
+    want = corr_fused.corr_fused_plain(pyr.f1, pyr.f2s, coords, R, torch.float32)
+    # fp32: only the summation order of C products differs
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
+    torch.testing.assert_close(got, want, **tol)
+    assert torch.all(got[0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 36, 320])
+def test_cuda_k7_matches_plain(cuda, dtype, c):
+    pyr, coords = _fused_inputs(2, c, dtype, cuda, 13)
+    k2 = (2 * R + 1) ** 2
+    got = torch.full((coords.shape[0], 4 * k2), float("nan"), device=cuda, dtype=dtype)
+    for lvl, f2 in enumerate(pyr.f2s):
+        corr_fused.corr_fused_level(pyr.f1, f2, lvl, coords, R, got)
+    want = corr_fused.corr_fused_plain(pyr.f1, pyr.f2s, coords, R, torch.float32)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
+    torch.testing.assert_close(got.float(), want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k10_matches_plain(cuda, dtype):
+    f1, f2, coords = _lookup_inputs(b=2, h8=5, w8=9, c=64, seed=14)
+    planes = corr_plane.build_plane_pyramid(
+        torch.from_numpy(f1).to(cuda), torch.from_numpy(f2).to(cuda), 4, dtype
+    )
+    c = torch.from_numpy(coords).reshape(-1, 2).to(cuda)
+    c[0] = torch.tensor([-3e38, 3e38])
+    for lvl, plane in enumerate(planes):
+        cl = (c / 2.0 ** lvl).contiguous()
+        got = corr_lookup_v2.level_support(plane, cl, R)
+        # a copy of plane values (bf16 -> fp32 is exact): equal
+        torch.testing.assert_close(got, window_support(plane, cl, R), atol=0, rtol=0)

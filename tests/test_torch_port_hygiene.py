@@ -14,17 +14,20 @@ _CPU_FORWARD = """
 import sys, json
 import torch
 from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
-from flow_supervisor_tpu_torch.kernels import _build, conv3x3, corr_plane, norm
+from flow_supervisor_tpu_torch.kernels import (
+    _build, conv3x3, corr_fused, corr_lookup_v2, corr_plane, norm)
 import flow_supervisor_tpu_torch.evaluation, flow_supervisor_tpu_torch.extract_flow
+import flow_supervisor_tpu_torch.profile_forward
 g = torch.Generator().manual_seed(0)
-model = RAFT(RAFTConfig(iters=2), generator=g)
-img = torch.rand(1, 32, 48, 3, generator=g)
+model = RAFT(RAFTConfig(iters=2, lookup_backend=BACKEND), generator=g)
+img = torch.rand(BATCH, 32, 48, 3, generator=g)
 out = model(img, img.flip(1), final_flow_only=True)
 print(json.dumps({
     "finite": bool(torch.isfinite(out["flow_up"]).all()),
     "shape": list(out["flow_up"].shape),
     "launches": [corr_plane.launches, conv3x3.launches, norm.stats_launches,
-                 norm.apply_launches],
+                 norm.apply_launches, corr_fused.all_launches, corr_fused.level_launches,
+                 corr_lookup_v2.launches],
     "lib_loaded": _build._lib is not None,
     "leaked": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "flax", "flow_supervisor_tpu", "cv2",
@@ -41,15 +44,31 @@ def _run(code: str) -> subprocess.CompletedProcess:
     )
 
 
-def test_cpu_forward_imports_no_jax_and_launches_nothing():
+def _cpu_forward(backend: str, batch: int) -> dict:
     import json
 
-    proc = _run(_CPU_FORWARD)
+    code = _CPU_FORWARD.replace("BACKEND", repr(backend)).replace("BATCH", str(batch))
+    proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_cpu_forward_imports_no_jax_and_launches_nothing():
+    res = _cpu_forward("plane", 1)
     assert res["leaked"] == []
     assert res["finite"] and res["shape"] == [1, 1, 32, 48, 2]
-    assert res["launches"] == [0, 0, 0, 0]
+    assert res["launches"] == [0] * 7
+    assert not res["lib_loaded"]
+
+
+@pytest.mark.parametrize(
+    "backend,batch", [("fused", 1), ("fused", 2), ("pallas", 1)], ids=["fused", "fused_b2", "pallas"]
+)
+def test_cpu_forward_per_lookup_backend_launches_nothing(backend, batch):
+    res = _cpu_forward(backend, batch)
+    assert res["leaked"] == []
+    assert res["finite"] and res["shape"] == [1, batch, 32, 48, 2]
+    assert res["launches"] == [0] * 7
     assert not res["lib_loaded"]
 
 

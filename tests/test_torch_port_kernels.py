@@ -1,5 +1,5 @@
-"""The port's kernel modules (K1 corr_plane, K2 conv3x3, K3/K4 norm) vs the
-JAX package's Pallas kernels, on CPU.
+"""The port's kernel modules (K1 corr_plane, K2 conv3x3, K3/K4 norm, K6/K7
+corr_fused, K10 corr_lookup_v2) vs the JAX package's Pallas kernels, on CPU.
 
 On CPU the port's wrappers run their plain PyTorch versions; the JAX side
 runs its Pallas kernels in interpret mode, as its own tests do. fp32,
@@ -11,13 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from flow_supervisor_tpu.kernels import corr_fused as jcf
+from flow_supervisor_tpu.kernels import corr_lookup_v2 as jv2
 from flow_supervisor_tpu.kernels import corr_plane as jcp
 from flow_supervisor_tpu.kernels.conv3x3 import conv3x3_stats as jconv3x3_stats
 from flow_supervisor_tpu.kernels.corr_lookup_v2 import build_padded_pyramid
 from flow_supervisor_tpu.kernels.norm import _norm_impl, instance_norm_apply as japply
 from flow_supervisor_tpu.models.layers import instance_norm as jinstance_norm
 from flow_supervisor_tpu.ops import corr as jcorr
-from flow_supervisor_tpu_torch.kernels import conv3x3, corr_plane, norm
+from flow_supervisor_tpu_torch.kernels import conv3x3, corr_fused, corr_lookup_v2, corr_plane, norm
 
 R = 4
 ATOL = 1e-5
@@ -75,6 +77,77 @@ def test_k1_bf16_output_is_the_rounded_fp32_output():
     b16 = _port_lookup(f1, f2, coords, out_dtype=torch.bfloat16)
     assert b16.dtype == torch.bfloat16
     assert torch.equal(b16, f32.to(torch.bfloat16))
+
+
+def _port_fused(f1, f2, coords, levels=4, out_dtype=torch.float32):
+    pyr = corr_fused.build_fused_pyramid(torch.from_numpy(f1), torch.from_numpy(f2), levels)
+    return corr_fused.corr_pyramid_lookup_fused(pyr, torch.from_numpy(coords), R, out_dtype)
+
+
+def _port_v2(f1, f2, coords, levels=4):
+    planes = corr_plane.build_plane_pyramid(torch.from_numpy(f1), torch.from_numpy(f2), levels)
+    return corr_lookup_v2.corr_pyramid_lookup_v2(planes, torch.from_numpy(coords), R)
+
+
+@pytest.mark.parametrize("c,b", [(16, 1), (32, 2)], ids=["c16_b1_k6", "c32_b2_k7"])
+def test_k6_k7_plain_matches_pallas_fused_kernel(c, b):
+    """B=1 takes the all-levels path (K6), B=2 the per-level path (K7) in both
+    packages; C=16 scales by an exact reciprocal, C=32 divides; windows fully
+    and partly out of bounds (coords up to 15 px out)."""
+    f1, f2, coords = _lookup_inputs(b=b, c=c, seed=4)
+    got = _port_fused(f1, f2, coords)
+    pyr = jcf.build_fused_pyramid(jnp.asarray(f1), jnp.asarray(f2), 4, R)
+    want = jcf.corr_pyramid_lookup_fused(pyr, jnp.asarray(coords), R, dy_major=False)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+def test_k10_plain_matches_pallas_window_kernel():
+    """Level by level, the support patches [BQ, 2r+2, 2r+2] against the first
+    2r+2 of the Pallas kernel's 16 support columns, then the whole lookup
+    against the JAX composition of those patches (``_combine``, dx-major
+    reorder, level concat, as ``corr_lookup_v2._lookup_impl`` does). B=2."""
+    f1, f2, coords = _lookup_inputs(b=2, c=32, seed=5)
+    planes = corr_plane.build_plane_pyramid(torch.from_numpy(f1), torch.from_numpy(f2), 4)
+    pyr = build_padded_pyramid(jnp.asarray(f1), jnp.asarray(f2), 4, R)
+    flat = coords.reshape(-1, 2)
+    k, sup = 2 * R + 1, 2 * R + 2
+    want = []
+    for lvl, (plane, jplane) in enumerate(zip(planes, pyr.planes)):
+        cl = flat / 2.0 ** lvl
+        got = corr_lookup_v2.level_support(plane, torch.from_numpy(cl), R)
+        jsup, frac = jv2._level_support(jplane, pyr.shapes[lvl], jnp.asarray(cl), R)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jsup)[:, :, :sup], atol=ATOL, rtol=0)
+        want.append(jnp.transpose(jv2._combine(jsup, frac, k), (0, 2, 1)).reshape(-1, k * k))
+    want = np.asarray(jnp.concatenate(want, axis=-1)).reshape(*coords.shape[:3], -1)
+    got = _port_v2(f1, f2, coords)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("backend", ["fused", "pallas"])
+def test_k6_k7_k10_far_out_of_bounds_coords_read_zero(backend):
+    f1, f2, coords = _lookup_inputs(b=2, seed=7)
+    coords[0, 0, 0] = (1e9, -1e9)
+    coords[1, 0, 1] = (-3e38, 3e38)
+    got = (_port_fused if backend == "fused" else _port_v2)(f1, f2, coords)
+    assert torch.all(got[0, 0, 0] == 0) and torch.all(got[1, 0, 1] == 0)
+    assert torch.isfinite(got).all()
+
+
+def test_k6_k7_wrappers_reject_bad_layouts():
+    f1, f2 = torch.zeros(1, 8, 16), torch.zeros(1, 2, 4, 16)
+    coords = torch.zeros(8, 2)
+    with pytest.raises(ValueError):
+        corr_fused.corr_fused_all(f1, [torch.zeros(1, 2, 4, 8)], coords)  # channel mismatch
+    with pytest.raises(ValueError):
+        corr_fused.corr_fused_all(f1, [f2.to(torch.bfloat16)], coords)  # dtype mismatch
+    with pytest.raises(ValueError):
+        corr_fused.corr_fused_all(f1, [f2], torch.zeros(7, 2))
+    with pytest.raises(ValueError):
+        corr_fused.corr_fused_level(f1, f2, 1, coords, R, torch.zeros(8, 81))  # stripe 1 too wide
+    with pytest.raises(ValueError):
+        corr_lookup_v2.level_support(torch.zeros(8, 4, 4), torch.zeros(8, 2, dtype=torch.float64))
 
 
 CONV_SHAPES = [

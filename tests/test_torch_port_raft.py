@@ -4,7 +4,10 @@ JAX RAFT (einsum lookup, scanned iterations) is initialized once; its
 parameters (with random batch-norm statistics) are carried to the port by
 ``from_flax``. Both run the same seeded inputs at 64x96, 3 iterations, fp32;
 the port must match to max |d flow_up| < 2e-3 px, the golden bound of
-docs/PARITY.md, with and without ``flow_init`` and ``final_flow_only``.
+docs/PARITY.md, with and without ``flow_init`` and ``final_flow_only``, and
+under each of the port's lookup backends (plane, fused at B=1 and B=2,
+pallas) against the same JAX einsum model: every backend computes the same
+windows, so only fp32 summation order differs.
 """
 import jax
 import jax.numpy as jnp
@@ -122,3 +125,40 @@ def test_run_pair_pads_runs_and_unpads(port_model, pair):
 def test_unported_variants_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RAFT(RAFTConfig(**{field: value}))
+
+
+@pytest.fixture(scope="module")
+def backend_models(jax_model):
+    _, params, stats = jax_model
+    state = from_flax(params, stats)
+    models = {}
+    for backend in ("plane", "fused", "pallas"):
+        models[backend] = RAFT(RAFTConfig(iters=ITERS, lookup_backend=backend))
+        models[backend].load_state_dict(state)
+    return models
+
+
+@pytest.mark.parametrize(
+    "backend,batch", [("plane", 1), ("fused", 1), ("fused", 2), ("pallas", 1)],
+    ids=["plane", "fused_b1_k6", "fused_b2_k7", "pallas"],
+)
+def test_forward_per_lookup_backend_matches_jax(jax_model, backend_models, pair, backend, batch):
+    img1, img2, _ = pair
+    if batch == 2:  # a second, different pair: the reversed one, flipped left-right
+        img1, img2 = (np.concatenate([a, b[:, :, ::-1]]) for a, b in ((img1, img2), (img2, img1)))
+    want = _jax_apply(jax_model, img1, img2)
+    got = backend_models[backend](torch.from_numpy(img1.copy()), torch.from_numpy(img2.copy()))
+    assert tuple(got["flow_up"].shape) == want["flow_up"].shape == (ITERS, batch, H, W, 2)
+    assert np.abs(got["flow_up"].numpy() - want["flow_up"]).max() < BOUND
+    assert np.abs(got["flow_low"].numpy() - want["flow_low"]).max() < BOUND
+
+
+@pytest.mark.parametrize("backend", ["auto", "einsum", "zero"])
+def test_unported_lookup_backends_raise(backend):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RAFT(RAFTConfig(lookup_backend=backend))
+
+
+def test_unknown_lookup_backend_is_refused():
+    with pytest.raises(ValueError, match="plane"):
+        RAFT(RAFTConfig(lookup_backend="planes"))
