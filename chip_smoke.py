@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's RAFT inference path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's RAFT inference path and its flow-supervisor
+(semi) train step on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Prints the card's name and power limit (as nvidia-smi gives them), builds
 the hand-written CUDA kernels of flow_supervisor_tpu_torch from the sources
-in this checkout (one nvcc per source, in parallel), then runs four phases,
+in this checkout (one nvcc per source, in parallel), then runs six phases,
 each printing one JSON line per check or configuration:
 
 1. kernels: K1 (corr_plane), K2 (conv3x3 + stats), K3/K4 (instance norm),
-   K6/K7 (corr_fused, all levels / per level) and K10 (corr_window) on the
-   card against their plain PyTorch versions at the main path's shapes and a
-   ragged one, fp32 (TF32 off) and bf16, with lookup coords in bounds, partly
-   out and far out of bounds;
+   K6/K7 (corr_fused, all levels / per level), K10 (corr_window) and K8/K9
+   (the fused lookup's backward, bwd_df1 / bwd_df2) on the card against
+   their plain PyTorch versions at the main paths' shapes and ragged ones,
+   fp32 (TF32 off) and bf16, with lookup coords in bounds, partly out and
+   far out of bounds;
 2. parity: a 216x512, 12-iteration fp32 forward on the card (kernels) against
    the same model and weights on the CPU (plain versions), for each lookup
    backend (plane, fused, pallas);
@@ -25,15 +27,27 @@ each printing one JSON line per check or configuration:
    and library times are device time (the timed calls queue behind a spin
    kernel); the forward's time is back to back, host included;
 4. requests: ``run_pair`` on three Sintel-size pairs, writing and reading
-   back ``.flo`` files.
+   back ``.flo`` files;
+5. train_parity: one semi train step at fp32 on the card against the same
+   step on the CPU (64x96 crops of 96x128 frames, 3 + 3 iterations): losses,
+   merged gradients and updated parameters, within the PARITY_* limits;
+6. train_main: the Sintel recipe's semi step (B=1, 400x720 and 368x768
+   crops of 432x1024 frames, 12 + 12 iterations, bf16) through
+   ``training.loop.train`` for two steps with the launch counters reset,
+   which must launch each kernel the expected number of times; then steps/s
+   over five steps by CUDA events, peak memory, device time and idle share
+   of one step (torch.profiler), and K8/K9 timed against their plain
+   versions on the step's lookup inputs.
 
 Then it prints a JSON line of the kernels (launches in their configuration's
-main-path run, max error, kernel, plain and library ms per forward, and the
-least time the card could take for the same work) and last
+main-path run, max error, kernel, plain and library ms per forward (K8/K9:
+per train step), and the least time the card could take for the same work)
+and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
 non-zero; so does a machine without a CUDA device. It imports nothing of JAX.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -70,7 +84,47 @@ SOURCES = {
                          "flow_supervisor_tpu/kernels/corr_fused.py:439"),
     "corr_window": ("flow_supervisor_tpu_torch/csrc/corr_window.cu",
                     "flow_supervisor_tpu/kernels/corr_lookup_v2.py:134"),
+    "bwd_df1": ("flow_supervisor_tpu_torch/csrc/corr_fused_bwd.cu",
+                "flow_supervisor_tpu/kernels/corr_fused.py:735"),
+    "bwd_df2": ("flow_supervisor_tpu_torch/csrc/corr_fused_bwd.cu",
+                "flow_supervisor_tpu/kernels/corr_fused.py:751"),
 }
+# the Sintel flow-supervisor recipe (train.sh): B=1, a 400x720 supervised and
+# a 368x768 unsupervised crop of 432x1024 frames, 12 student and 12 teacher
+# iterations, lr 1e-5 exponential, no weight decay, clipnorm 1
+TRAIN_FULL, TRAIN_SUP, TRAIN_UNSUP = (432, 1024), (400, 720), (368, 768)
+TRAIN_STEPS_MAIN, TRAIN_STEPS_TIMED = 2, 5  # the main path's steps (also warm-up), timed steps
+RECIPE_MODEL = dict(model_type="raft-semi", iters=ITERS, teacher_iters=ITERS,
+                    lfr_loss_type="robust", lfl_loss_decay_rate=1.0, lookup_backend="fused")
+RECIPE_TRAIN = dict(stage="semi-sintel_unsup_test-things_unsup", lr=1e-5,
+                    lr_schedule="exponential", lr_decay_steps=25000, weight_decay=0.0,
+                    clip_norm=1.0, log_every=1)
+# launches of each kernel in one semi step: fnet runs four times (the crop
+# pair and the full pair, in each branch), 10 K2 + 5 K3 + 15 K4 each; every
+# lookup is one K6 (sup: 12 student + 12 teacher; unsup: 2 directions x
+# (12 + 12)); K8 and K9 run once per student lookup (sup 12, unsup 2 x 12):
+# the teacher's pyramid carries no gradient
+TRAIN_LAUNCHES = {"conv3x3_stats": 40, "norm_stats": 20, "norm_apply": 60,
+                  "corr_fused_all": 72, "bwd_df1": 36, "bwd_df2": 36}
+# K8 / K9 calls per step at each lookup shape: sup 50x90 (12), unsup 46x96 (24)
+TRAIN_BWD_CALLS = {"sup": 12, "unsup": 24}
+# Limits of the card-vs-CPU semi step (phase 5: fp32, 64x96 crops, 3 + 3
+# iterations). The step is chaotic at fp32 rounding (ReLU kinks and bilinear
+# taps through the loops): scaling every weight by 1 + 2^-24 * N(0, 1) moves
+# some variables' gradients by up to about 1e-2 in relative L2, but fnet's,
+# the ones K8/K9 reach, by about 2e-3; a K8 or K9 that drops one query's taps
+# moves fnet's by about 1e-2. tests/test_torch_train_parity_limits.py
+# measures both on the CPU and holds the limits between them. Adam's first
+# step moves an element by at most lr, so two first steps differ by at most
+# 2 lr; elements whose gradient is near eps scale turn fp32 noise into moves
+# of up to that, so updates are held by their share within 1e-2 lr.
+PARITY_ITERS = 3
+PARITY_LOSS_REL = 1e-4
+PARITY_GRAD_L2 = 3e-2  # per variable, ||g - g_ref|| / ||g_ref||
+PARITY_FNET_GRAD_L2 = 4e-3  # the same, for fnet's variables
+PARITY_NOISE_BIAS = 1e-4  # biases before instance norm, relative to their weight's gradient
+PARITY_UPDATE_MAX_LR = 2.0 + 1e-3
+PARITY_UPDATE_SHARE = 0.999
 # launches of each kernel in one 448x1024 forward, at any batch: fnet runs
 # once over the 2B images, with 10 3x3 stride-1 conv -> instance-norm -> relu
 # pairs (K2 + K4) and 5 other instance norms (stem, two stride-2 conv1s, two
@@ -88,7 +142,7 @@ CONFIGS = [("plane", 1), ("fused", 1), ("fused", 8), ("pallas", 1), ("plane", 8)
 HOME_CONFIG = {"corr_plane": ("plane", 1), "conv3x3_stats": ("plane", 1),
                "norm_stats": ("plane", 1), "norm_apply": ("plane", 1),
                "corr_fused_all": ("fused", 1), "corr_fused_level": ("fused", 8),
-               "corr_window": ("pallas", 1)}
+               "corr_window": ("pallas", 1), "bwd_df1": ("train", 1), "bwd_df2": ("train", 1)}
 # fnet shapes at 448x1024 (B=1: the pair runs through fnet together) and how
 # many times one forward runs each kernel there
 CONV_SHAPES = [((2, 224, 512, 64), 64, 4), ((2, 112, 256, 96), 96, 3), ((2, 56, 128, 128), 128, 3)]
@@ -115,7 +169,8 @@ def launch_counts() -> dict:
             "norm_stats": norm.stats_launches, "norm_apply": norm.apply_launches,
             "corr_fused_all": corr_fused.all_launches,
             "corr_fused_level": corr_fused.level_launches,
-            "corr_window": corr_lookup_v2.launches}
+            "corr_window": corr_lookup_v2.launches,
+            "bwd_df1": corr_fused.bwd_df1_launches, "bwd_df2": corr_fused.bwd_df2_launches}
 
 
 def reset_launch_counts() -> None:
@@ -123,6 +178,7 @@ def reset_launch_counts() -> None:
 
     corr_plane.launches = conv3x3.launches = norm.stats_launches = norm.apply_launches = 0
     corr_fused.all_launches = corr_fused.level_launches = corr_lookup_v2.launches = 0
+    corr_fused.bwd_df1_launches = corr_fused.bwd_df2_launches = 0
 
 
 def time_ms(fn, reps=20, warm=3, device_only=False) -> float:
@@ -290,6 +346,31 @@ def phase_kernels(dev):
                            "dtype": str(dtype), "err": e})
             if bf16 and b == 8 and (h8, w8) == main8:
                 errs["corr_fused_level"] = e
+        # K8 / K9 at the recipe's student level-0 shapes: 50x90 (400x720 crop)
+        # at B=1 and B=2 (4,500 queries a sample: blocks straddle samples) and
+        # 46x96 (368x768). fp32: sums of up to 400 (K8) and several thousand
+        # (K9 at level 3, in an order the atomics change) products in another
+        # order, rtol 1e-5 atol 1e-4; bf16: within 1 bf16 ulp of plain fp32
+        for b, (h8, w8) in ((1, (50, 90)), (2, (50, 90)), (1, (46, 96))):
+            f1, f2 = fmaps(b, h8, w8, dtype, gen, dev)
+            coords = check_coords(b * h8 * w8, h8, w8, gen, dev)
+            pyr = corr_fused.build_fused_pyramid(f1, f2, LEVELS)
+            g = torch.randn(b * h8 * w8, LEVELS * K2, generator=gen).to(dev, dtype)
+            f1p, f2p = pyr.f1.float(), [f.float() for f in pyr.f2s]
+            got = corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, RADIUS)
+            want = corr_fused.bwd_df1_plain(f1p, f2p, coords, g, RADIUS)
+            e8 = check_close(f"K8 B={b} {h8}x{w8} {dtype}", got, want, rtol or 1e-5, 1e-4)
+            got = corr_fused.bwd_df2(pyr.f1, pyr.f2s, coords, g, RADIUS)
+            want = corr_fused.bwd_df2_plain(f1p, f2p, coords, g, RADIUS)
+            e9 = max(check_close(f"K9 B={b} {h8}x{w8} level {lvl} {dtype}", a, w, rtol or 1e-5, 1e-4)
+                     for lvl, (a, w) in enumerate(zip(got, want)))
+            checks.append({"kernel": "bwd_df1", "batch": b, "shape": [h8, w8], "dtype": str(dtype),
+                           "err": e8})
+            checks.append({"kernel": "bwd_df2", "batch": b, "shape": [h8, w8], "dtype": str(dtype),
+                           "err": e9})
+            if bf16 and (b, h8) == (1, 50):
+                errs["bwd_df1"], errs["bwd_df2"] = e8, e9
+            del pyr, got, want, f1p, f2p
         # K2: the three stage shapes and a width that is not a multiple of 8
         for shape, cout, _ in CONV_SHAPES + [((2, 55, 90, 128), 128, 0)]:
             c = shape[3]
@@ -598,6 +679,264 @@ def phase_requests(dev):
           "dtype": "float32", "pairs": done})
 
 
+def noise_bias(name: str) -> bool:
+    """An fnet conv bias that an instance norm follows: its gradient is zero
+    in exact arithmetic, fp32 noise in practice."""
+    return name.startswith("fnet.") and name.endswith(".bias") and name != "fnet.conv2.bias"
+
+
+def recipe_batches(sup_hw, unsup_hw, full_hw, gen, sup_yx, unsup_yx):
+    """(sup, unsup) batches of the semi step's contract, B=1, CPU tensors:
+    smooth random frames, crops at (y, x), and for sup a smooth random flow
+    label with about 10 % of its pixels invalid."""
+    import torch
+    import torch.nn.functional as F
+
+    out = []
+    for (h, w), (y, x), shift in ((sup_hw, sup_yx, (2, 3)), (unsup_hw, unsup_yx, (4, 1))):
+        full1, full2 = synthetic_pair(1, *full_hw, gen, shift=shift)
+        out.append({"image1": full1[:, y : y + h, x : x + w].contiguous(),
+                    "image2": full2[:, y : y + h, x : x + w].contiguous(),
+                    "orig_image1": full1, "orig_image2": full2,
+                    "crop_yx": torch.tensor([[y, x]])})
+    h, w = sup_hw
+    low = 4.0 * torch.randn(1, 2, h // 32 + 2, w // 32 + 2, generator=gen)
+    out[0]["flow"] = F.interpolate(low, size=(h, w), mode="bilinear").permute(0, 2, 3, 1).contiguous()
+    out[0]["valid"] = (torch.rand(1, h, w, 1, generator=gen) > 0.1).float()
+    return out[0], out[1]
+
+
+def parity_setup():
+    """The train-parity step: the recipe's config at fp32 with 3 + 3
+    iterations, random weights (a state dict) with non-trivial frozen batch
+    norm, and (sup, unsup) batches cut as 64x96 crops of 96x128 frames."""
+    import torch
+
+    from flow_supervisor_tpu_torch.config import ExperimentConfig, ModelCfg, TrainCfg
+    from flow_supervisor_tpu_torch.training.loop import build_model
+
+    gen = torch.Generator().manual_seed(6)
+    cfg = ExperimentConfig(
+        ModelCfg(**dict(RECIPE_MODEL, iters=PARITY_ITERS, teacher_iters=PARITY_ITERS,
+                        compute_dtype="float32")),
+        TrainCfg(**RECIPE_TRAIN))
+    base = build_model(cfg, gen)
+    for m in base.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            for t in (m.running_mean, m.running_var, m.weight, m.bias):
+                t.data.uniform_(0.5, 1.5, generator=gen)
+    sup, unsup = recipe_batches((64, 96), (64, 96), (96, 128), gen, (16, 8), (24, 32))
+    return cfg, base.state_dict(), sup, unsup
+
+
+def semi_step_outputs(cfg, weights, sup, unsup, device):
+    """One semi step from ``weights`` on ``device`` -> (logs, merged
+    gradients, parameters after the step, parameters before), on the CPU."""
+    import torch
+
+    from flow_supervisor_tpu_torch.training.loop import build_model
+    from flow_supervisor_tpu_torch.training.optim import batchnorm_params, make_optimizer
+    from flow_supervisor_tpu_torch.training.semi import make_semi_train_step
+    from flow_supervisor_tpu_torch.training.state import TrainState
+
+    model = build_model(cfg)
+    model.load_state_dict(weights)
+    model.to(device)
+    before = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+    state = TrainState.create(dict(model.named_parameters()),
+                              make_optimizer(cfg.train, batchnorm_params(model)))
+    step = make_semi_train_step(model, cfg.model, gamma=cfg.train.loss_decay_rate,
+                                sup_loss_type=cfg.train.loss_type, debug_grads=True)
+    state, log = step(state, {k: v.to(device) for k, v in sup.items()},
+                      {k: v.to(device) for k, v in unsup.items()})
+    grads = {k: g.detach().cpu() for k, g in log.pop("_merged_grads").items()}
+    params = {k: p.detach().cpu() for k, p in state.params.items()}
+    return {k: float(v) for k, v in log.items()}, grads, params, before
+
+
+def parity_errors(run, ref, lr):
+    """How far one semi step's outputs (``semi_step_outputs``) lie from a
+    reference step's: losses, per-variable gradients and updates."""
+    import torch
+
+    (lg, gr, pr, before), (lc, gc, pc, _) = run, ref
+    upd = torch.cat([((pr[k] - before[k]) - (pc[k] - before[k])).abs().flatten()
+                     for k in pc if not noise_bias(k)]) / lr
+    l2 = {k: float((gr[k] - gc[k]).norm() / gc[k].norm()) for k in gc if not noise_bias(k)}
+    return {
+        "max_rel_err_losses": max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc),
+        "max_grad_l2": max(l2.values()),
+        "max_fnet_grad_l2": max(v for k, v in l2.items() if k.startswith("fnet.")),
+        "worst_grad_vars": sorted(l2, key=l2.get)[-3:],
+        "max_noise_bias_grad_rel_to_weight": max(
+            float(torch.maximum(gr[k].abs().max(), gc[k].abs().max())
+                  / gc[k[: -len("bias")] + "weight"].abs().max()) for k in gc if noise_bias(k)),
+        "max_rel_err_params": max(float((pr[k] - pc[k]).abs().max() / pc[k].abs().max())
+                                  for k in pc),
+        "max_update_err_lr": float(upd.max()),
+        "share_updates_within_1e-2_lr": float((upd <= 1e-2).float().mean()),
+        "finite": all(math.isfinite(v) for v in lg.values()),
+    }
+
+
+def parity_ok(err) -> bool:
+    """The limits of the card-vs-CPU train step (see PARITY_*)."""
+    return bool(
+        err["finite"] and err["max_rel_err_losses"] < PARITY_LOSS_REL
+        and err["max_grad_l2"] < PARITY_GRAD_L2 and err["max_fnet_grad_l2"] < PARITY_FNET_GRAD_L2
+        and err["max_noise_bias_grad_rel_to_weight"] < PARITY_NOISE_BIAS
+        and err["max_update_err_lr"] <= PARITY_UPDATE_MAX_LR
+        and err["share_updates_within_1e-2_lr"] >= PARITY_UPDATE_SHARE)
+
+
+def phase_train_parity(dev):
+    """One semi step on the card (fp32, TF32 off) against the same step on the
+    CPU (plain versions), same weights and batches (``parity_setup``)."""
+    import torch
+
+    cfg, weights, sup, unsup = parity_setup()
+    ref = semi_step_outputs(cfg, weights, sup, unsup, torch.device("cpu"))
+    run = semi_step_outputs(cfg, weights, sup, unsup, dev)
+    err = parity_errors(run, ref, cfg.train.lr)
+    res = {"phase": "train_parity", "crop_hw": [64, 96], "full_hw": [96, 128],
+           "iters": PARITY_ITERS, "teacher_iters": PARITY_ITERS, "dtype": "float32",
+           "logs_cpu": ref[0], "logs_gpu": run[0], **err, "ok": parity_ok(err)}
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"train step card-vs-CPU parity failed: {res}")
+
+
+def train_bwd_timing(model, batches, dev):
+    """K8 / K9 against their plain versions on the inputs of the step's last
+    student lookups at the sup (50x90) and unsup (46x96) shapes: ms per step
+    (per-call device time x calls), and the card's least time for them."""
+    import torch
+
+    from flow_supervisor_tpu_torch.kernels import corr_fused
+    from flow_supervisor_tpu_torch.ops.coords import coords_grid
+
+    gen = torch.Generator().manual_seed(8)
+    times = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
+                 "t_bytes": 0.0, "t_ops": 0.0, "per_call": {}} for n in ("bwd_df1", "bwd_df2")}
+    for (name, batch) in zip(("sup", "unsup"), batches):
+        with torch.no_grad():
+            out = model.semi_forward(batch["image1"], batch["image2"], batch["orig_image1"],
+                                     batch["orig_image2"], batch["crop_yx"], use_bw=False,
+                                     teacher_final_only=True, teacher_grad=False)
+            low = out["student_low_fw"]
+            b, h8, w8 = low.shape[1:4]
+            coords = (coords_grid(b, h8, w8, device=dev) + low[-2]).reshape(-1, 2).float().contiguous()
+            pyr = model.build_corr(*model.features(batch["image1"], batch["image2"]))
+        f1, f2s = pyr.f1, pyr.f2s
+        g = torch.randn(coords.shape[0], LEVELS * K2, generator=gen).to(dev, f1.dtype)
+        shapes = [(lvl, tuple(f2.shape[1:3])) for lvl, f2 in enumerate(f2s)]
+        ops = 2 * f1.shape[2] * support_taps(coords, shapes)
+        common = g.numel() * g.element_size() + coords.numel() * 4
+        f2_bytes = sum(f2.numel() * f2.element_size() for f2 in f2s)
+        f1_bytes = f1.numel() * f1.element_size()
+        calls = TRAIN_BWD_CALLS[name]
+        for kname, kernel, plain, nbytes in (
+            # K8 reads g, coords and f2, writes d_f1 in f1's dtype
+            ("bwd_df1", corr_fused.bwd_df1, corr_fused.bwd_df1_plain, common + f2_bytes + f1_bytes),
+            # K9 reads g, coords and f1, writes d_f2 in f2's dtype
+            ("bwd_df2", corr_fused.bwd_df2, corr_fused.bwd_df2_plain, common + f1_bytes + f2_bytes),
+        ):
+            k, p = ab_ms(lambda: kernel(f1, f2s, coords, g, RADIUS),
+                         lambda: plain(f1, f2s, coords, g, RADIUS))
+            tb, to = bound(nbytes, ops, f1.dtype)
+            t = times[kname]
+            t["ms"] += calls * k
+            t["plain_ms"] += calls * p
+            t["bound_ms"] += calls * max(tb, to)
+            t["t_bytes"] += calls * tb
+            t["t_ops"] += calls * to
+            t["per_call"][name] = {"queries": coords.shape[0], "calls_per_step": calls, "ms": k,
+                                   "plain_ms": p, "bound_ms": max(tb, to), "bytes": nbytes,
+                                   "ops": ops}
+        del pyr, out
+    for t in times.values():
+        t["bound_by"] = "bytes" if t.pop("t_bytes") >= t.pop("t_ops") else "operations"
+    return times
+
+
+def phase_train_main(dev):
+    """The Sintel recipe's semi step at full width and full shapes through
+    ``training.loop.train`` (the main path: launch counts over its steps),
+    then steps/s over timed steps, peak memory, device time per step, and
+    K8 / K9 timed against their plain versions."""
+    import itertools
+
+    import torch
+
+    from flow_supervisor_tpu_torch.config import ExperimentConfig, ModelCfg, TrainCfg
+    from flow_supervisor_tpu_torch.profile_forward import profile
+    from flow_supervisor_tpu_torch.training.loop import train
+    from flow_supervisor_tpu_torch.training.semi import make_semi_train_step
+
+    gen = torch.Generator().manual_seed(7)
+    batches = [recipe_batches(TRAIN_SUP, TRAIN_UNSUP, TRAIN_FULL, gen, (16, 152), (32, 128)),
+               recipe_batches(TRAIN_SUP, TRAIN_UNSUP, TRAIN_FULL, gen, (24, 296), (56, 256))]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = ExperimentConfig(ModelCfg(**RECIPE_MODEL, compute_dtype="bfloat16"),
+                               TrainCfg(**RECIPE_TRAIN, seed=7), ckpt_dir=tmp)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        model, state = train(cfg, itertools.cycle(batches), max_steps=TRAIN_STEPS_MAIN, device=dev)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    want = {k: 0 for k in SOURCES}
+    want.update({k: TRAIN_STEPS_MAIN * v for k, v in TRAIN_LAUNCHES.items()})
+    if got != want:
+        raise AssertionError(f"train main path: launch counts {got} != expected {want}")
+    if len(rows) != TRAIN_STEPS_MAIN or not all(
+            math.isfinite(v) for r in rows for v in r.values() if isinstance(v, float)):
+        raise AssertionError(f"train main path: bad metrics rows {rows}")
+
+    step = make_semi_train_step(model, cfg.model, gamma=cfg.train.loss_decay_rate,
+                                sup_loss_type=cfg.train.loss_type)
+    dev_batches = [tuple({k: v.to(dev) for k, v in b.items()} for b in pair) for pair in batches]
+    holder = {"state": state, "i": 0}
+
+    def one():
+        holder["state"], log = step(holder["state"], *dev_batches[holder["i"] % 2])
+        holder["i"] += 1
+        return log
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_STEPS_TIMED):
+        log = one()
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    log = {k: float(v) for k, v in log.items()}
+    if not all(math.isfinite(v) for v in log.values()):
+        raise AssertionError(f"train main path: non-finite log {log}")
+    prof = profile(one, n=1)
+    times = train_bwd_timing(model, dev_batches[0], dev)
+    for name, t in times.items():
+        t["launches"] = got[name]
+    res = {"phase": "train_main", "ok": True, "recipe": "semi sintel (train.sh)", "batch": 1,
+           "sup_hw": list(TRAIN_SUP), "unsup_hw": list(TRAIN_UNSUP), "full_hw": list(TRAIN_FULL),
+           "iters": ITERS, "teacher_iters": ITERS, "dtype": "bfloat16",
+           "main_path_steps": TRAIN_STEPS_MAIN, "launches": got,
+           "launches_per_step": {k: v // TRAIN_STEPS_MAIN for k, v in got.items()},
+           "metrics_rows": rows, "timed_steps": TRAIN_STEPS_TIMED, "step_ms": step_ms,
+           "steps_per_s": 1000.0 / step_ms, "peak_mem_bytes": peak, "last_log": log,
+           "device_ms_per_step": prof.get("device_ms_per_forward"),
+           "device_idle_share": prof.get("device_idle_share"),
+           "launches_per_step_all": prof.get("launches_per_forward"),
+           "by_category_ms_per_step": prof.get("by_category_ms_per_forward"),
+           "bwd_kernels": times}
+    emit(res)
+    return got, times
+
+
 def main() -> int:
     import torch
 
@@ -624,17 +963,21 @@ def main() -> int:
     phase_parity(dev)
     launches, times = phase_main_path(dev)
     phase_requests(dev)
+    phase_train_parity(dev)
+    launches[("train", 1)], times[("train", 1)] = phase_train_main(dev)
 
     kernels = []
     for name, (src, rep) in SOURCES.items():
         home = HOME_CONFIG[name]
         t = times[home][name]
+        config = ({"lookup_backend": home[0], "batch": home[1]} if home[0] != "train" else
+                  {"train": "semi sintel recipe", "batch": 1, "steps": TRAIN_STEPS_MAIN,
+                   "launches_per_step": TRAIN_LAUNCHES[name]})
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[home][name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "config": {"lookup_backend": home[0], "batch": home[1]},
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "config": config,
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@
 - flax BatchNorm scale / bias + batch_stats mean / var -> BatchNorm2d
   weight / bias / running_mean / running_var;
 - flax module paths (``ResidualBlock_3/ExtractorConv_1``) -> the reference
-  torch names the port uses (``layer2.1.conv2``).
+  torch names the port uses (``layer2.1.conv2``); the flow supervisor's
+  teacher head, where present, maps like the update block.
 
 numpy in, torch tensors out; nothing here imports JAX.
 """
@@ -73,6 +74,8 @@ def from_flax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
     _encoder(sd, "fnet", params["fnet"], None)
     _encoder(sd, "cnet", params["cnet"], batch_stats["cnet"])
     _update_block(sd, "update_block", params["update_block"])
+    if "teacher_update_block" in params:
+        _update_block(sd, "teacher_update_block", params["teacher_update_block"])
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 

@@ -52,59 +52,6 @@ __host__ __device__ inline int support_slots(int radius) {
   return (sp * sp + 31) / 32 * 32;
 }
 
-// 8 channels of a feature row as fp32, for `lane` of 256-channel chunk
-// `chunk`: channels chunk*256 + lane*8 + [0, 8) when VEC (C % 8 == 0, rows
-// 16-byte aligned), else chunk*256 + lane + 32*[0, 8). Channels >= C read 0.
-template <bool VEC>
-__device__ __forceinline__ void load8(const float* __restrict__ row, int chunk, int lane, int C,
-                                      float v[8]) {
-  if (VEC) {
-    const int c = chunk * 256 + lane * 8;
-    if (c < C) {
-      const float4 a = *reinterpret_cast<const float4*>(row + c);
-      const float4 b = *reinterpret_cast<const float4*>(row + c + 4);
-      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = chunk * 256 + lane + 32 * i;
-      v[i] = c < C ? row[c] : 0.f;
-    }
-  }
-}
-
-template <bool VEC>
-__device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ row, int chunk, int lane,
-                                      int C, float v[8]) {
-  if (VEC) {
-    const int c = chunk * 256 + lane * 8;
-    if (c < C) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(row + c);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h[i]);
-        v[2 * i] = f.x;
-        v[2 * i + 1] = f.y;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = chunk * 256 + lane + 32 * i;
-      v[i] = c < C ? __bfloat162float(row[c]) : 0.f;
-    }
-  }
-}
-
 // One step of the warp's butterfly reduce-scatter of p[0, 2W): a lane keeps
 // the half of its slots selected by bit W of its lane id, in p[0, W), and
 // adds the partner's copy of that half. After the steps 16, 8, 4, 2, 1,
@@ -147,7 +94,7 @@ __device__ void lookup_level(const TIn* __restrict__ f1q, const TIn* __restrict_
     for (int j = 0; j < 32; ++j) p[j] = 0.f;
     for (int chunk = 0; chunk < nchunks; ++chunk) {
       float a[8];
-      load8<VEC>(f1q, chunk, lane, C, a);
+      fst_load8<VEC>(f1q, chunk, lane, C, a);
       // slot g + j is support row u, column v, stepped without a division
       int u = g / sp;
       int v = g % sp;
@@ -161,7 +108,7 @@ __device__ void lookup_level(const TIn* __restrict__ f1q, const TIn* __restrict_
         u += v == 0;
         if (valid) {
           float b[8];
-          load8<VEC>(f2b + ((long)y * w2 + x) * C, chunk, lane, C, b);
+          fst_load8<VEC>(f2b + ((long)y * w2 + x) * C, chunk, lane, C, b);
           float d = p[j];
 #pragma unroll
           for (int i = 0; i < 8; ++i) d = fmaf(a[i], b[i], d);

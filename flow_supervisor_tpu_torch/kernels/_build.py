@@ -45,6 +45,12 @@ SIGNATURES = {
     # f1, f2, h2, w2, level, coords, out, out_stride, bq, q_per_b, C, radius, in_dtype,
     # out_dtype, stream
     "fst_corr_fused_level": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # f2[L], h2[L], w2[L], levels, coords, g, d_f1, bq, q_per_b, C, radius, in_dtype (f1's),
+    # g_dtype, stream
+    "fst_corr_fused_bwd_df1": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # f1, d_f2 fp32 accumulators[L], h2[L], w2[L], levels, coords, g, bq, q_per_b, C, radius,
+    # in_dtype, g_dtype, stream
+    "fst_corr_fused_bwd_df2": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # plane, h2, w2, coords, out, bq, radius, in_dtype, stream
     "fst_corr_window": [_P, _I, _I, _P, _P, _I, _I, _I, _P],
     # x, w_hwio, bias, y, partials, stats, B, H, W, C, Cout, dtype, eps, stream

@@ -7,7 +7,8 @@ epilogue: kernel K2, counterpart of flow_supervisor_tpu/kernels/conv3x3.py
 (y [B, H, W, Cout] in x's dtype, stats [B, 2, Cout] float32) where the stats
 are (mean, rsqrt(var + 1e-5)) of the fp32 conv output taken before the cast,
 as the TPU kernel takes them (csrc/conv3x3.cu, replaces ``_conv_stats_kernel``).
-``conv3x3_instnorm_relu`` finishes the pair with K4 (kernels/norm.py).
+``conv3x3_instnorm_relu`` finishes the pair with K4 (kernels/norm.py); it is
+a ``torch.autograd.Function`` whose backward is ``_cin_bwd``'s (below).
 
 The wrapper takes the plain PyTorch version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises. ``launches`` counts kernel launches.
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from flow_supervisor_tpu_torch.kernels import _build
-from flow_supervisor_tpu_torch.kernels.norm import EPS, instance_norm_apply
+from flow_supervisor_tpu_torch.kernels.norm import EPS, instance_norm_apply, norm_backward
 
 launches = 0
 
@@ -83,9 +84,38 @@ def conv3x3_stats(
     return y, stats
 
 
+class _Conv3x3InstNormRelu(torch.autograd.Function):
+    """Forward K2 + K4; backward ``_cin_bwd`` of the JAX package: the
+    closed-form norm VJP from the saved statistics, cast to y's dtype, then
+    the conv's input, weight and bias gradients in that one dtype (PyTorch's
+    convolution backward, where JAX used XLA's conv transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, relu):
+        y, stats = conv3x3_stats(x, w, b)
+        ctx.relu = relu
+        ctx.save_for_backward(x, w, y, stats)
+        return instance_norm_apply(y, stats, relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, y, stats = ctx.saved_tensors
+        dy = norm_backward(y, stats, g, ctx.relu)
+        dx, dw, db = torch.ops.aten.convolution_backward(
+            dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+            [w.shape[3]], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            list(ctx.needs_input_grad[:3]),
+        )
+        return (
+            None if dx is None else dx.permute(0, 2, 3, 1),
+            None if dw is None else dw.permute(2, 3, 1, 0),
+            db, None,
+        )
+
+
 def conv3x3_instnorm_relu(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True
 ) -> torch.Tensor:
-    """conv3x3 (+bias) -> affine-free instance norm -> (relu), NHWC: K2 then K4."""
-    y, stats = conv3x3_stats(x, w, b)
-    return instance_norm_apply(y, stats, relu)
+    """conv3x3 (+bias) -> affine-free instance norm -> (relu), NHWC: K2 then
+    K4, differentiable."""
+    return _Conv3x3InstNormRelu.apply(x, w, b, relu)

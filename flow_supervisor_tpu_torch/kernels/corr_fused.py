@@ -20,11 +20,22 @@ The TPU layout (grouped f2 factors, 128-lane and query padding, SMEM index
 planes, one-hot combine matrices) and its VMEM-budget fallback are not
 carried over.
 
+The lookup is a ``torch.autograd.Function`` whose backward is volume-free
+too (csrc/corr_fused_bwd.cu), at any batch: each query's window cotangent
+becomes its masked support cotangent / sqrt(C), then
+
+- ``bwd_df1`` (K8, replaces ``_bwd_df1_kernel``): d_f1[q] = sum over levels
+  and support taps of d_sup * f2_l[tap], one launch for all levels;
+- ``bwd_df2`` (K9, replaces ``_bwd_df2_kernel``): d_f2_l[tap] += d_sup *
+  f1[q], one launch for all levels, summed with atomics in fp32.
+
 Each wrapper takes the plain PyTorch version (``corr_fused_plain``: per-level
 fp32 volumes by ``torch.matmul`` over chunks of queries, looked up by
-``corr_plane.corr_lookup_plain``) only for CPU tensors; for CUDA tensors it
-launches the kernel or raises. ``all_launches`` / ``level_launches`` count
-kernel launches.
+``corr_plane.corr_lookup_plain``; ``bwd_df1_plain`` / ``bwd_df2_plain``: the
+cotangent volume of a chunk of queries by scatter, then the two factor
+products) only for CPU tensors; for CUDA tensors it launches the kernel or
+raises. ``all_launches`` / ``level_launches`` / ``bwd_df1_launches`` /
+``bwd_df2_launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -35,10 +46,16 @@ import torch
 
 from flow_supervisor_tpu_torch.kernels import _build
 from flow_supervisor_tpu_torch.kernels.corr_plane import MAX_LEVELS, corr_lookup_plain
-from flow_supervisor_tpu_torch.ops.corr import _avg_pool_fmap_same
+from flow_supervisor_tpu_torch.ops.corr import (
+    _avg_pool_fmap_same,
+    support_cotangent,
+    support_index,
+)
 
 all_launches = 0
 level_launches = 0
+bwd_df1_launches = 0
+bwd_df2_launches = 0
 
 PLAIN_CHUNK = 2048  # queries per plain matmul chunk: bounds its fp32 volume
 
@@ -167,18 +184,148 @@ def corr_fused_level(
     level_launches += 1
 
 
+def _dvol_chunks(f1, f2s, coords, g, radius):
+    """The plain backward's transient: for each sample, chunk of queries and
+    level, (sample, first query, level, d_vol [n, h2 * w2] fp32) where d_vol
+    holds each query's masked support cotangent / sqrt(C) at its support taps
+    (the closed form of the JAX package's ``lookup_vjp_dvols``)."""
+    b, q, c = f1.shape
+    k2 = (2 * radius + 1) ** 2
+    gq = g.reshape(b * q, len(f2s), k2)
+    for bi in range(b):
+        for q0 in range(0, q, PLAIN_CHUNK):
+            n = min(PLAIN_CHUNK, q - q0)
+            rows = slice(bi * q + q0, bi * q + q0 + n)
+            for lvl, f2 in enumerate(f2s):
+                h2, w2 = f2.shape[1], f2.shape[2]
+                cl = coords[rows].float() * (1.0 / 2.0 ** lvl)
+                idx, valid = support_index(cl, radius, h2, w2)
+                dsup = torch.where(valid, support_cotangent(gq[rows, lvl], cl, radius), 0.0)
+                dvol = torch.zeros((n, h2 * w2), dtype=torch.float32, device=f1.device)
+                dvol.scatter_add_(1, idx, dsup.reshape(n, -1) / c ** 0.5)
+                yield bi, q0, lvl, dvol
+
+
+def bwd_df1_plain(f1, f2s, coords, g, radius: int = 4) -> torch.Tensor:
+    """Plain K8: d_f1 [B, Q, C] = sum over levels of d_vol x f2_l, in fp32,
+    returned in f1's dtype."""
+    d_f1 = torch.zeros(f1.shape, dtype=torch.float32, device=f1.device)
+    for bi, q0, lvl, dvol in _dvol_chunks(f1, f2s, coords, g, radius):
+        cols = f2s[lvl][bi].reshape(-1, f1.shape[2]).float()
+        d_f1[bi, q0 : q0 + dvol.shape[0]] += dvol @ cols
+    return d_f1.to(f1.dtype)
+
+
+def bwd_df2_plain(f1, f2s, coords, g, radius: int = 4) -> list[torch.Tensor]:
+    """Plain K9: per level d_f2_l [B, h2, w2, C] = d_vol^T x f1, in fp32,
+    returned in f2_l's dtype."""
+    d_f2s = [torch.zeros(f2.shape, dtype=torch.float32, device=f2.device) for f2 in f2s]
+    for bi, q0, lvl, dvol in _dvol_chunks(f1, f2s, coords, g, radius):
+        rows = f1[bi, q0 : q0 + dvol.shape[0]].float()
+        d_f2s[lvl][bi] += (dvol.t() @ rows).reshape(d_f2s[lvl].shape[1:])
+    return [d.to(f2.dtype) for d, f2 in zip(d_f2s, f2s)]
+
+
+def _check_bwd_args(what, f1, f2s, coords, g, radius):
+    _check_args(what, f1, f2s, coords, radius)
+    if not 1 <= len(f2s) <= MAX_LEVELS:
+        raise ValueError(f"{what}: 1..{MAX_LEVELS} levels, got {len(f2s)}")
+    k2 = (2 * radius + 1) ** 2
+    shape = (coords.shape[0], len(f2s) * k2)
+    if tuple(g.shape) != shape or not g.is_contiguous():
+        raise ValueError(f"{what}: g must be contiguous {list(shape)}, got {tuple(g.shape)}")
+    _build.dtype_code(g)
+
+
+def _level_arrays(ptrs, f2s):
+    """ctypes arrays of per-level pointers, heights and widths (each cast keeps
+    its array alive)."""
+    nl = len(f2s)
+    return (
+        ctypes.cast((ctypes.c_void_p * nl)(*ptrs), ctypes.c_void_p),
+        ctypes.cast((ctypes.c_int * nl)(*[f2.shape[1] for f2 in f2s]), ctypes.c_void_p),
+        ctypes.cast((ctypes.c_int * nl)(*[f2.shape[2] for f2 in f2s]), ctypes.c_void_p),
+    )
+
+
+def bwd_df1(f1, f2s, coords, g, radius: int = 4) -> torch.Tensor:
+    """K8: d_f1 [B, Q, C] in f1's dtype from the lookup's output cotangent g
+    [B * Q, L * (2r+1)^2], all levels in one launch."""
+    global bwd_df1_launches
+    _check_bwd_args("bwd_df1", f1, f2s, coords, g, radius)
+    if not _build.uses_kernel("bwd_df1", f1, coords, g, *f2s):
+        return bwd_df1_plain(f1, f2s, coords, g, radius)
+    b, q, c = f1.shape
+    d_f1 = torch.empty_like(f1)
+    with torch.cuda.device(f1.device):
+        rc = _build.lib().fst_corr_fused_bwd_df1(
+            *_level_arrays([f2.data_ptr() for f2 in f2s], f2s), len(f2s), coords.data_ptr(),
+            g.data_ptr(), d_f1.data_ptr(), b * q, q, c, radius, _build.dtype_code(f1),
+            _build.dtype_code(g), _build.stream_of(f1),
+        )
+    _build.check(rc, "bwd_df1")
+    bwd_df1_launches += 1
+    return d_f1
+
+
+def bwd_df2(f1, f2s, coords, g, radius: int = 4) -> list[torch.Tensor]:
+    """K9: per level d_f2_l [B, h2, w2, C] in f2_l's dtype, all levels in one
+    launch, accumulated with atomics in fp32 buffers that this wrapper zeroes
+    (the order of the sums changes from run to run)."""
+    global bwd_df2_launches
+    _check_bwd_args("bwd_df2", f1, f2s, coords, g, radius)
+    if not _build.uses_kernel("bwd_df2", f1, coords, g, *f2s):
+        return bwd_df2_plain(f1, f2s, coords, g, radius)
+    b, q, c = f1.shape
+    accs = [torch.zeros(f2.shape, dtype=torch.float32, device=f2.device) for f2 in f2s]
+    with torch.cuda.device(f1.device):
+        rc = _build.lib().fst_corr_fused_bwd_df2(
+            f1.data_ptr(), *_level_arrays([a.data_ptr() for a in accs], f2s), len(f2s),
+            coords.data_ptr(), g.data_ptr(), b * q, q, c, radius, _build.dtype_code(f1),
+            _build.dtype_code(g), _build.stream_of(f1),
+        )
+    _build.check(rc, "bwd_df2")
+    bwd_df2_launches += 1
+    return [a.to(f2.dtype) for a, f2 in zip(accs, f2s)]
+
+
+class _FusedLookup(torch.autograd.Function):
+    """Forward K6 (B == 1) or K7 (B > 1); backward K8 (d_f1) and K9 (d_f2 per
+    level), the volume-free backward of the JAX package's ``_try_bwd_kernel``.
+    coords get no gradient: the model detaches them every iteration, as JAX's
+    ``stop_gradient`` does."""
+
+    @staticmethod
+    def forward(ctx, flat, radius, out_dtype, batch, f1, *f2s):
+        ctx.radius = radius
+        ctx.save_for_backward(flat, f1, *f2s)
+        if batch == 1:
+            return corr_fused_all(f1, list(f2s), flat, radius, out_dtype)
+        k2 = (2 * radius + 1) ** 2
+        out = torch.empty((flat.shape[0], len(f2s) * k2), dtype=out_dtype, device=flat.device)
+        for lvl, f2 in enumerate(f2s):
+            corr_fused_level(f1, f2, lvl, flat, radius, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        flat, f1, *f2s = ctx.saved_tensors
+        g = g.contiguous()
+        d_f1 = bwd_df1(f1, f2s, flat, g, ctx.radius) if ctx.needs_input_grad[4] else None
+        d_f2s = (
+            bwd_df2(f1, f2s, flat, g, ctx.radius) if any(ctx.needs_input_grad[5:])
+            else [None] * len(f2s)
+        )
+        return (None, None, None, None, d_f1, *d_f2s)
+
+
 def corr_pyramid_lookup_fused(
     pyramid: FusedPyramid, coords: torch.Tensor, radius: int = 4, out_dtype=torch.float32,
 ) -> torch.Tensor:
     """coords [B, h1, w1, 2] -> [B, h1, w1, L * (2r+1)^2]: K6 at B == 1, K7
-    per level at B > 1 (the JAX package's dispatch)."""
+    per level at B > 1 (the JAX package's dispatch); differentiable in the
+    factors (K8 / K9), not in coords."""
     b, h1, w1, _ = coords.shape
-    flat = coords.reshape(b * h1 * w1, 2).float().contiguous()
-    if b == 1:
-        out = corr_fused_all(pyramid.f1, pyramid.f2s, flat, radius, out_dtype)
-    else:
-        k2 = (2 * radius + 1) ** 2
-        out = torch.empty((flat.shape[0], len(pyramid.f2s) * k2), dtype=out_dtype, device=flat.device)
-        for lvl, f2 in enumerate(pyramid.f2s):
-            corr_fused_level(pyramid.f1, f2, lvl, flat, radius, out)
+    flat = coords.detach().reshape(b * h1 * w1, 2).float().contiguous()
+    out = _FusedLookup.apply(flat, radius, out_dtype, b, pyramid.f1, *pyramid.f2s)
     return out.reshape(b, h1, w1, -1)

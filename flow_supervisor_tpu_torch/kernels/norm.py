@@ -11,6 +11,10 @@ K3 (statistics) and K4 (apply), counterpart of flow_supervisor_tpu/kernels/norm.
 Each wrapper takes its plain PyTorch version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises. ``stats_launches`` /
 ``apply_launches`` count kernel launches.
+
+``instance_norm`` is a ``torch.autograd.Function``: forward K3 + K4, backward
+the closed-form ``norm_backward`` from the saved statistics (counterpart of
+``instance_norm_fused`` and its ``_norm_bwd``).
 """
 from __future__ import annotations
 
@@ -101,6 +105,40 @@ def instance_norm_apply(
     return y
 
 
+def norm_backward(
+    x: torch.Tensor, stats: torch.Tensor, g: torch.Tensor, relu: bool
+) -> torch.Tensor:
+    """Closed-form VJP of (x - mean) * r (+ relu) with the statistics taken
+    from x itself (``_norm_bwd`` of the JAX package), in fp32 from the saved
+    statistics: dx = r * (g - mean(g) - yhat * mean(g * yhat)), in x's dtype."""
+    mean = stats[:, 0][:, None, None, :]
+    r = stats[:, 1][:, None, None, :]
+    yhat = (x.float() - mean) * r
+    g32 = g.float()
+    if relu:
+        g32 = torch.where(yhat > 0, g32, torch.zeros_like(g32))
+    gm = g32.mean(dim=(1, 2), keepdim=True)
+    gym = (g32 * yhat).mean(dim=(1, 2), keepdim=True)
+    return (r * (g32 - gm - yhat * gym)).to(x.dtype)
+
+
+class _InstanceNorm(torch.autograd.Function):
+    """Forward K3 + K4; backward ``norm_backward`` in plain PyTorch (the JAX
+    package's backward is XLA code, not a Pallas kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, relu):
+        stats = instance_norm_stats(x)
+        ctx.relu = relu
+        ctx.save_for_backward(x, stats)
+        return instance_norm_apply(x, stats, relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, stats = ctx.saved_tensors
+        return norm_backward(x, stats, g, ctx.relu), None
+
+
 def instance_norm(x: torch.Tensor, relu: bool = False) -> torch.Tensor:
-    """Instance norm (+ relu) of x [B, H, W, C]: K3 then K4."""
-    return instance_norm_apply(x, instance_norm_stats(x), relu)
+    """Instance norm (+ relu) of x [B, H, W, C]: K3 then K4, differentiable."""
+    return _InstanceNorm.apply(x, relu)

@@ -30,9 +30,10 @@ from flow_supervisor_tpu_torch.models.layers import (
 
 
 def _conv_instnorm_relu(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """3x3 stride-1 conv -> instance norm -> relu through K2 + K4."""
-    w = conv.weight.permute(2, 3, 1, 0).contiguous()  # OIHW -> HWIO
-    return nchw(conv3x3_instnorm_relu(nhwc(x), w, conv.bias, relu=True))
+    """3x3 stride-1 conv -> instance norm -> relu through K2 + K4, the
+    parameters cast to x's dtype."""
+    w = conv.weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()  # OIHW -> HWIO
+    return nchw(conv3x3_instnorm_relu(nhwc(x), w, conv.bias.to(x.dtype), relu=True))
 
 
 class ResidualBlock(nn.Module):

@@ -1,6 +1,6 @@
 """Conv / norm building blocks (counterpart of flow_supervisor_tpu/models/layers.py).
 
-Convs are plain ``nn.Conv2d`` with torch-style symmetric k//2 padding, so
+Convs are ``nn.Conv2d`` (``Conv2d`` below) with torch-style symmetric k//2 padding, so
 strided convs downsample exactly like the reference. Initialization matches
 the JAX package:
 
@@ -9,8 +9,16 @@ the JAX package:
 - update convs: kernel and bias ~ U(+-1/sqrt(fan_in)), fan_in = c_in * kh * kw.
 
 Norms: ``instance`` is the affine-free instance norm (eps 1e-5, fp32
-statistics) of kernels/norm.py; ``batch`` is ``nn.BatchNorm2d`` (eps 1e-5,
-running statistics at inference); ``none`` is the identity.
+statistics) of kernels/norm.py, differentiable; ``batch`` is
+``nn.BatchNorm2d`` (eps 1e-5, flax momentum 0.99 = torch 0.01; running
+statistics in eval mode, and in training too when the model freezes its
+batch norm): with fp32 parameters (training's masters) and a bf16 input it
+computes in fp32 and returns bf16, as flax's BatchNorm (param_dtype fp32)
+does; ``none`` is the identity.
+
+Every conv casts its weight and bias to its input's dtype (the compute
+dtype) at each call: a no-op where the model holds its parameters in that
+dtype (inference), the cast of the fp32 masters in training.
 
 Activations inside the models are NCHW tensors in ``torch.channels_last``
 memory format, so ``nhwc`` hands the NHWC kernels a view without a copy.
@@ -29,10 +37,19 @@ def _pair(k):
     return tuple(k) if isinstance(k, (tuple, list)) else (k, k)
 
 
-def conv2d(c_in: int, c_out: int, k, stride: int = 1) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose parameters are cast to the input's dtype at every
+    call, as flax casts its fp32 params to the compute dtype at every apply:
+    the gradient of each use comes back to an fp32 master in fp32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+def conv2d(c_in: int, c_out: int, k, stride: int = 1) -> Conv2d:
     """Conv with torch-style symmetric k//2 padding (ExtractorConv / UpdateConv)."""
     kh, kw = _pair(k)
-    return nn.Conv2d(c_in, c_out, (kh, kw), stride, (kh // 2, kw // 2))
+    return Conv2d(c_in, c_out, (kh, kw), stride, (kh // 2, kw // 2))
 
 
 @torch.no_grad()

@@ -18,9 +18,22 @@ package (channels dx-major in every backend):
   support patches, combined in PyTorch (kernels/corr_lookup_v2.py).
 
 Public layout follows the JAX package: images [B, H, W, 3], flows
-[B, H, W, 2], coords (x, y). Parameters are held in ``cfg.dtype`` (the JAX
-package keeps fp32 parameters and casts them to its compute dtype at every
-apply; holding them cast gives the same rounding once).
+[B, H, W, 2], coords (x, y). Parameters are held in ``param_dtype``: by
+default ``cfg.dtype``, cast once at construction (the JAX package keeps fp32
+parameters and casts them to its compute dtype at every apply; for inference
+one cast gives the same rounding). Training builds the model with fp32
+masters (``training/loop.build_model``); every conv then casts them to
+``cfg.dtype`` at each call (models/layers.py), so the gradient of each of the
+update block's uses (iterations, directions) comes back in fp32 and autograd
+sums them in fp32.
+
+Training (the flow supervisor, counterpart of ``semi_forward``): with
+``teacher=True`` the model owns a second update block, the teacher head;
+``semi_forward`` runs the student on the crop and the teacher, continuing
+from the student's final state zero-padded into the full frame, over a
+pyramid, context and state that carry no gradient (computed under
+``torch.no_grad``, where JAX has ``stop_gradient``). ``freeze_bn`` keeps
+cnet's batch norm on its running statistics in training mode too.
 """
 from __future__ import annotations
 
@@ -43,7 +56,20 @@ from flow_supervisor_tpu_torch.models.encoders import BasicEncoder
 from flow_supervisor_tpu_torch.models.layers import init_weights_, nchw, nhwc
 from flow_supervisor_tpu_torch.models.update import BasicUpdateBlock
 from flow_supervisor_tpu_torch.ops.coords import coords_grid, downsample_shape, resize_flow
+from flow_supervisor_tpu_torch.ops.pad import crop_bboxes, pad_bboxes
 from flow_supervisor_tpu_torch.ops.upsample import upsample_convex
+
+
+def _crop_upsample(flow_low, mask, crop_yx8, hw8, out_size):
+    """Convex-upsample only each sample's (h8, w8) window at crop_yx8 of a
+    full-frame low-res field: equal to cropping the full-frame upsample (each
+    output pixel reads one mask cell and its 3x3 neighbourhood), with the 1-px
+    halo taken from the zero-padded full field."""
+    h8, w8 = hw8
+    xp = torch.nn.functional.pad(flow_low, (0, 0, 1, 1, 1, 1))
+    halo = crop_bboxes(xp, crop_yx8, (h8 + 2, w8 + 2))
+    mask_c = crop_bboxes(mask, crop_yx8, (h8, w8))
+    return upsample_convex(halo, mask_c, out_size, pre_padded=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +85,9 @@ class RAFTConfig:
     convex_upsampling: bool = True  # False (bilinear) comes with the small model
     small: bool = False
     gma: bool = False
-    teacher: bool = False
+    teacher: bool = False  # add the flow-supervisor teacher update block
+    teacher_iters: int = 12
+    freeze_bn: bool = False  # batch norm on running statistics in training too
 
     hidden_dim = 128
     context_dim = 128
@@ -68,7 +96,6 @@ class RAFTConfig:
 _NOT_PORTED = {
     "small": "the small model (ROADMAP Queue 1, item 6: SmallEncoder / SmallUpdateBlock)",
     "gma": "GMA (ROADMAP Queue 1, item 5)",
-    "teacher": "the flow-supervisor teacher head (ROADMAP Queue 1, item 7)",
 }
 # bilinear (non-convex) upsampling comes with the small model, which needs it
 _NOT_PORTED_OFF = {"convex_upsampling": _NOT_PORTED["small"]}
@@ -81,7 +108,10 @@ _NOT_PORTED_BACKENDS = {
 
 
 class RAFT(nn.Module):
-    def __init__(self, cfg: RAFTConfig = RAFTConfig(), generator: Optional[torch.Generator] = None):
+    def __init__(
+        self, cfg: RAFTConfig = RAFTConfig(), generator: Optional[torch.Generator] = None,
+        param_dtype: Optional[torch.dtype] = None,
+    ):
         super().__init__()
         for field, what in _NOT_PORTED.items():
             if getattr(cfg, field):
@@ -105,8 +135,23 @@ class RAFT(nn.Module):
         init_weights_(self.fnet, "extractor", generator)
         init_weights_(self.cnet, "extractor", generator)
         init_weights_(self.update_block, "update", generator)
-        self.to(dtype=cfg.dtype, memory_format=torch.channels_last)
+        if cfg.teacher:
+            self.teacher_update_block = BasicUpdateBlock(
+                cfg.hidden_dim, cfg.corr_levels, cfg.corr_radius
+            )
+            init_weights_(self.teacher_update_block, "update", generator)
+        self.to(dtype=param_dtype or cfg.dtype, memory_format=torch.channels_last)
         self.eval()
+
+    def train(self, mode: bool = True):
+        """Training mode; with ``cfg.freeze_bn`` batch norm stays on its
+        running statistics (reference: frozen for every stage but chairs)."""
+        super().train(mode)
+        if mode and self.cfg.freeze_bn:
+            for m in self.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.eval()
+        return self
 
     # ---- components -------------------------------------------------------
 
@@ -145,28 +190,40 @@ class RAFT(nn.Module):
 
     def iterate(
         self, net, inp, pyramid, coords0, coords1, out_size, iters: int,
-        final_flow_only: bool = False,
+        final_flow_only: bool = False, teacher: bool = False, crop=None,
     ):
         """Run ``iters`` refinement steps -> (net, coords1, flows_up, flows_low).
 
         flows_up: [iters, B, H, W, 2] (length 1 with ``final_flow_only``: only
-        the last iteration is upsampled); flows_low: [iters, B, h8, w8, 2]."""
+        the last iteration is upsampled); flows_low: [iters, B, h8, w8, 2].
+        coords are detached at the top of every iteration (JAX's
+        ``stop_gradient``). ``teacher``: refine with the teacher head.
+        ``crop``: ``(crop_yx8, (h8, w8), (h, w))``, upsample only each
+        sample's crop window, at crop resolution (``_crop_upsample``)."""
         cfg = self.cfg
+        block = self.teacher_update_block if teacher else self.update_block
         b, h8, w8 = coords1.shape[:3]
         mask = torch.zeros((b, h8, w8, 576), dtype=cfg.dtype, device=coords1.device)
+
+        def upsample(flow_low, mask):
+            if crop is not None:
+                return _crop_upsample(flow_low, mask.float(), *crop) * 8.0
+            return upsample_convex(flow_low, mask.float(), out_size) * 8.0
+
         ups, lows = [], []
         for _ in range(iters):
+            coords1 = coords1.detach()
             corr = self.lookup(pyramid, coords1)
             flow = (coords1 - coords0).to(cfg.dtype)
-            net, up_mask, delta = self.update_block(net, inp, nchw(corr), nchw(flow))
+            net, up_mask, delta = block(net, inp, nchw(corr), nchw(flow))
             coords1 = coords1 + nhwc(delta).float()
             flow_low = coords1 - coords0
             lows.append(flow_low)
             mask = nhwc(up_mask)
             if not final_flow_only:
-                ups.append(upsample_convex(flow_low, mask.float(), out_size) * 8.0)
+                ups.append(upsample(flow_low, mask))
         if final_flow_only:
-            ups = [upsample_convex(coords1 - coords0, mask.float(), out_size) * 8.0]
+            ups = [upsample(coords1 - coords0, mask)]
         return net, coords1, torch.stack(ups), torch.stack(lows)
 
     # ---- standard forward -------------------------------------------------
@@ -196,3 +253,87 @@ class RAFT(nn.Module):
             net, inp, pyramid, coords0, coords1, (h, w), iters, final_flow_only
         )
         return {"flow_up": flows_up, "flow_low": flows_low}
+
+    # ---- flow-supervisor forward (counterpart of RAFT.semi_forward) --------
+
+    def teacher_iterate(self, net, inp, pyramid, coords0, coords1, out_size, iters: int):
+        """Continue refinement with the teacher head."""
+        return self.iterate(net, inp, pyramid, coords0, coords1, out_size, iters, teacher=True)
+
+    def _directional(
+        self, image1, pyramid, teacher_pyramid, teacher_image1, crop_yx8,
+        teacher_final_only: bool, teacher_grad: bool,
+    ):
+        """One direction: the student on the crop, then the teacher from the
+        student's final hidden state and flow zero-padded into the full frame,
+        with the teacher context from the full image; the teacher's
+        predictions come back in the crop's frame."""
+        cfg = self.cfg
+        b, h, w, _ = image1.shape
+        fh, fw = teacher_image1.shape[1], teacher_image1.shape[2]
+        h8, w8 = downsample_shape(h), downsample_shape(w)
+        fh8, fw8 = downsample_shape(fh), downsample_shape(fw)
+
+        net, inp = self.context(image1)
+        coords0 = coords_grid(b, h8, w8, device=image1.device)
+        net, _, stu_up, stu_low = self.iterate(
+            net, inp, pyramid, coords0, coords0, (h, w), cfg.iters
+        )
+        t_net = pad_bboxes(nhwc(net.detach()), crop_yx8, (fh8, fw8))
+        t_flow = pad_bboxes(stu_low[-1].detach(), crop_yx8, (fh8, fw8))
+        with torch.no_grad():
+            _, t_inp = self.context(teacher_image1)
+        t_coords0 = coords_grid(b, fh8, fw8, device=image1.device)
+        with torch.set_grad_enabled(teacher_grad and torch.is_grad_enabled()):
+            _, _, tea_up, tea_low = self.iterate(
+                nchw(t_net), t_inp, teacher_pyramid, t_coords0, t_coords0 + t_flow, (fh, fw),
+                cfg.teacher_iters, final_flow_only=teacher_final_only, teacher=True,
+                crop=(crop_yx8, (h8, w8), (h, w)),
+            )
+        return stu_up, stu_low, tea_up, tea_low
+
+    def semi_forward(
+        self, image1, image2, orig_image1, orig_image2, crop_yx,
+        use_bw: bool = True, teacher_final_only: bool = False, teacher_grad: bool = True,
+    ) -> dict[str, torch.Tensor]:
+        """Teacher-student forward of the flow supervisor.
+
+        image1/2: [B, h, w, 3] crops of orig_image1/2 [B, H, W, 3] at crop_yx
+        [B, 2] int (y, x), multiples of 8. Returns student_fw/bw [iters, B, h,
+        w, 2], teacher_fw/bw [teacher_iters (1 with ``teacher_final_only``),
+        B, h, w, 2] in the crop's frame, and the low-res flows
+        student_low_* [iters, B, h8, w8, 2], teacher_low_* [teacher_iters, B,
+        H8, W8, 2] (full frame). The teacher's pyramid, context and starting
+        state carry no gradient; ``teacher_grad=False`` runs the teacher head
+        without gradient too, for callers that use its predictions only as a
+        target."""
+        if not self.cfg.teacher:
+            raise ValueError("semi_forward needs RAFTConfig(teacher=True)")
+        if torch.is_grad_enabled() and self.cfg.lookup_backend != "fused":
+            raise NotImplementedError(
+                f"training through lookup_backend={self.cfg.lookup_backend!r}: only the fused "
+                "lookup has a backward (K8/K9); the plane and pallas kernels' backward "
+                "passes are not ported yet (ROADMAP Queue 2)"
+            )
+        fmap1, fmap2 = self.features(image1, image2)
+        pyramid = self.build_corr(fmap1, fmap2)
+        with torch.no_grad():
+            tf1, tf2 = self.features(orig_image1, orig_image2)
+            t_pyramid = self.build_corr(tf1, tf2)
+        crop_yx8 = crop_yx.long() // 8
+        stu_fw, stu_low_fw, tea_fw, tea_low_fw = self._directional(
+            image1, pyramid, t_pyramid, orig_image1, crop_yx8, teacher_final_only, teacher_grad
+        )
+        out = {"student_fw": stu_fw, "student_low_fw": stu_low_fw,
+               "teacher_fw": tea_fw, "teacher_low_fw": tea_low_fw}
+        if use_bw:
+            bw_pyramid = self.build_corr(fmap2, fmap1)
+            with torch.no_grad():
+                t_bw_pyramid = self.build_corr(tf2, tf1)
+            stu_bw, stu_low_bw, tea_bw, tea_low_bw = self._directional(
+                image2, bw_pyramid, t_bw_pyramid, orig_image2, crop_yx8, teacher_final_only,
+                teacher_grad,
+            )
+            out.update(student_bw=stu_bw, student_low_bw=stu_low_bw,
+                       teacher_bw=tea_bw, teacher_low_bw=tea_low_bw)
+        return out

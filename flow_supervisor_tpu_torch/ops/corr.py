@@ -12,7 +12,8 @@
 - ``window_support`` / ``combine_support``: the same window from per-query
   planes in two plain steps, the (2r+2)^2 support patch and its 4-tap
   bilinear combine (the plain versions behind the plane, fused and pallas
-  lookup kernels).
+  lookup kernels); ``support_cotangent`` is the combine's transpose (the
+  plain version behind the fused lookup's backward kernels).
 """
 from __future__ import annotations
 
@@ -116,11 +117,11 @@ def corr_pyramid_lookup_gather(
     return torch.cat(outs, dim=-1)
 
 
-def window_support(plane: torch.Tensor, coords: torch.Tensor, radius: int) -> torch.Tensor:
-    """plane [BQ, h2, w2], coords [BQ, 2] (x, y) at the plane's scale ->
-    [BQ, 2r+2, 2r+2] fp32 support patch [y, x] from the window base
-    clip(floor(c) - r, -(2r+2), dim); taps outside the plane read 0."""
-    bq, h2, w2 = plane.shape
+def support_index(coords: torch.Tensor, radius: int, h2: int, w2: int):
+    """Support taps of the windows at coords [BQ, 2] (x, y), at the map's
+    scale, in an [h2, w2] map: (flat index [BQ, (2r+2)^2] into h2 * w2, clamped
+    into the map; valid [BQ, 2r+2, 2r+2]). The window base is
+    clip(floor(c) - r, -(2r+2), dim), so far-out coords cannot overflow."""
     sup = 2 * radius + 2
     ar = torch.arange(sup, device=coords.device)
     fl = torch.floor(coords.float())
@@ -130,9 +131,36 @@ def window_support(plane: torch.Tensor, coords: torch.Tensor, radius: int) -> to
     ys = by[:, None] + ar
     valid = ((ys >= 0) & (ys < h2))[:, :, None] & ((xs >= 0) & (xs < w2))[:, None, :]
     idx = ys.clamp(0, h2 - 1)[:, :, None] * w2 + xs.clamp(0, w2 - 1)[:, None, :]
-    patch = torch.gather(plane.reshape(bq, h2 * w2), 1, idx.reshape(bq, -1))
+    return idx.reshape(coords.shape[0], -1), valid
+
+
+def window_support(plane: torch.Tensor, coords: torch.Tensor, radius: int) -> torch.Tensor:
+    """plane [BQ, h2, w2], coords [BQ, 2] (x, y) at the plane's scale ->
+    [BQ, 2r+2, 2r+2] fp32 support patch [y, x]; taps outside the plane read 0."""
+    bq, h2, w2 = plane.shape
+    sup = 2 * radius + 2
+    idx, valid = support_index(coords, radius, h2, w2)
+    patch = torch.gather(plane.reshape(bq, h2 * w2), 1, idx)
     patch = patch.reshape(bq, sup, sup).float()
     return torch.where(valid, patch, torch.zeros_like(patch))
+
+
+def support_cotangent(g: torch.Tensor, coords: torch.Tensor, radius: int) -> torch.Tensor:
+    """Transpose of ``combine_support``: window cotangent g [BQ, (2r+1)^2]
+    (dx-major) at coords [BQ, 2] -> support cotangent [BQ, 2r+2, 2r+2] [y, x]
+    in fp32, d_sup[u, v] = sum over the 4 taps of w_tap * g[u - a, v - b]."""
+    k = 2 * radius + 1
+    c = coords.float()
+    frac = c - torch.floor(c)
+    fx = frac[:, 0][:, None, None]
+    fy = frac[:, 1][:, None, None]
+    gl = g.float().reshape(-1, k, k).transpose(1, 2)  # [BQ, dy, dx]
+    return (
+        (1.0 - fy) * (1.0 - fx) * F.pad(gl, (0, 1, 0, 1))
+        + (1.0 - fy) * fx * F.pad(gl, (1, 0, 0, 1))
+        + fy * (1.0 - fx) * F.pad(gl, (0, 1, 1, 0))
+        + fy * fx * F.pad(gl, (1, 0, 1, 0))
+    )
 
 
 def combine_support(support: torch.Tensor, coords: torch.Tensor, radius: int) -> torch.Tensor:

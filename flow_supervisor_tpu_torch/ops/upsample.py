@@ -17,12 +17,22 @@ def upsample_convex(
     mask: torch.Tensor,
     out_size: tuple[int, int] | None = None,
     scale: int = 8,
+    pre_padded: bool = False,
 ) -> torch.Tensor:
     """x: [B, H, W, C] low-res field; mask: [B, H, W, 9*scale^2] logits.
 
-    Returns [B, out_h, out_w, C], out defaulting to (H*scale, W*scale)."""
-    b, h, w, c = x.shape
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1)).float()
+    Returns [B, out_h, out_w, C], out defaulting to (H*scale, W*scale).
+
+    ``pre_padded``: x is [B, H+2, W+2, C] and already carries its 1-px halo
+    (a crop window of a larger field with its true neighbours), so it is not
+    zero-padded again."""
+    if pre_padded:
+        b, hp, wp, c = x.shape
+        h, w = hp - 2, wp - 2
+        xp = x.float()
+    else:
+        b, h, w, c = x.shape
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1)).float()
     s2 = scale * scale
     m = torch.softmax(mask.reshape(b, h, w, 9, s2).float(), dim=3)
     p = torch.stack(

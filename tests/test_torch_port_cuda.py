@@ -118,6 +118,48 @@ def test_cuda_k7_matches_plain(cuda, dtype, c):
     torch.testing.assert_close(got.float(), want, **tol)
 
 
+def _bwd_inputs(b, c, dtype, dev, seed):
+    pyr, coords = _fused_inputs(b, c, dtype, dev, seed)
+    g = torch.randn(coords.shape[0], 4 * (2 * R + 1) ** 2, generator=torch.Generator().manual_seed(seed))
+    return pyr, coords, g.to(dev, dtype)
+
+
+# B=2 exercises b = q // q_per_b; C=36 the scalar path; C=320 two chunks.
+# fp32: sums of <= 400 products in another order (K9: in an order that
+# changes from run to run, by atomics), so rtol 1e-5 of the result plus atol
+# 1e-5; bf16: within 1 bf16 ulp of the plain fp32-accumulated value
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c", [(1, 64), (2, 64), (2, 36), (1, 320)])
+def test_cuda_k8_k9_match_plain(cuda, dtype, b, c):
+    pyr, coords, g = _bwd_inputs(b, c, dtype, cuda, 15)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
+    got = corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, R)
+    want = corr_fused.bwd_df1_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g, R)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want, **tol)
+    assert torch.all(got.reshape(-1, c)[0] == 0)  # the far-out query reads nothing
+    got2 = corr_fused.bwd_df2(pyr.f1, pyr.f2s, coords, g, R)
+    want2 = corr_fused.bwd_df2_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g, R)
+    for a, w in zip(got2, want2):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), w, **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_lookup_backward_launches_k8_k9(cuda):
+    pyr, coords, g = _bwd_inputs(1, 64, torch.float32, cuda, 16)
+    f1 = pyr.f1.clone().requires_grad_()
+    f2s = [f.clone().requires_grad_() for f in pyr.f2s]
+    n1, n2 = corr_fused.bwd_df1_launches, corr_fused.bwd_df2_launches
+    out = corr_fused.corr_pyramid_lookup_fused(
+        corr_fused.FusedPyramid(f1, f2s), coords.reshape(1, 7, 11, 2), R)
+    out.backward(g.reshape(out.shape))
+    assert (corr_fused.bwd_df1_launches - n1, corr_fused.bwd_df2_launches - n2) == (1, 1)
+    torch.testing.assert_close(
+        f1.grad, corr_fused.bwd_df1_plain(pyr.f1, pyr.f2s, coords, g, R), atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_k10_matches_plain(cuda, dtype):

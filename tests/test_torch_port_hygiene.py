@@ -1,6 +1,7 @@
-"""The port stands alone: it imports no JAX, no flax and nothing of the JAX
-package, and on CPU tensors its wrappers take the plain PyTorch versions
-without launching (or building) any kernel."""
+"""The port stands alone: it imports no JAX, no flax, no yaml and nothing of
+the JAX package, on CPU tensors its wrappers take the plain PyTorch versions
+without launching (or building) any kernel, and its entry points refuse to
+run without a card unless the caller asks for the CPU."""
 import os
 import subprocess
 import sys
@@ -17,7 +18,8 @@ from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
 from flow_supervisor_tpu_torch.kernels import (
     _build, conv3x3, corr_fused, corr_lookup_v2, corr_plane, norm)
 import flow_supervisor_tpu_torch.evaluation, flow_supervisor_tpu_torch.extract_flow
-import flow_supervisor_tpu_torch.profile_forward
+import flow_supervisor_tpu_torch.profile_forward, flow_supervisor_tpu_torch.config
+import flow_supervisor_tpu_torch.training.loop, flow_supervisor_tpu_torch.training.semi
 g = torch.Generator().manual_seed(0)
 model = RAFT(RAFTConfig(iters=2, lookup_backend=BACKEND), generator=g)
 img = torch.rand(BATCH, 32, 48, 3, generator=g)
@@ -25,15 +27,45 @@ out = model(img, img.flip(1), final_flow_only=True)
 print(json.dumps({
     "finite": bool(torch.isfinite(out["flow_up"]).all()),
     "shape": list(out["flow_up"].shape),
-    "launches": [corr_plane.launches, conv3x3.launches, norm.stats_launches,
-                 norm.apply_launches, corr_fused.all_launches, corr_fused.level_launches,
-                 corr_lookup_v2.launches],
+    "launches": LAUNCHES,
     "lib_loaded": _build._lib is not None,
-    "leaked": sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "flax", "flow_supervisor_tpu", "cv2",
-                                            "optax", "orbax", "yaml")),
+    "leaked": LEAKED,
 }))
 """
+_LAUNCHES = """[corr_plane.launches, conv3x3.launches, norm.stats_launches,
+    norm.apply_launches, corr_fused.all_launches, corr_fused.level_launches,
+    corr_lookup_v2.launches, corr_fused.bwd_df1_launches, corr_fused.bwd_df2_launches]"""
+_LEAKED = """sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "flax", "flow_supervisor_tpu", "cv2", "optax", "orbax", "yaml"))"""
+_CPU_FORWARD = _CPU_FORWARD.replace("LAUNCHES", _LAUNCHES).replace("LEAKED", _LEAKED)
+
+_CPU_SEMI_STEP = """
+import sys, json
+import numpy as np
+import torch
+from flow_supervisor_tpu_torch.config import ExperimentConfig, ModelCfg, TrainCfg
+from flow_supervisor_tpu_torch.kernels import _build, conv3x3, corr_fused, corr_lookup_v2, corr_plane, norm
+from flow_supervisor_tpu_torch.training.loop import train
+rng = np.random.default_rng(0)
+img = lambda s: rng.uniform(0, 1, s).astype(np.float32)
+sup = {"image1": img((1, 32, 48, 3)), "image2": img((1, 32, 48, 3)),
+       "orig_image1": img((1, 48, 64, 3)), "orig_image2": img((1, 48, 64, 3)),
+       "crop_yx": np.asarray([[8, 16]]), "flow": img((1, 32, 48, 2)),
+       "valid": np.ones((1, 32, 48, 1), np.float32)}
+unsup = {k: v for k, v in sup.items() if k not in ("flow", "valid")}
+cfg = ExperimentConfig(
+    ModelCfg(model_type="raft-semi", iters=1, teacher_iters=1, compute_dtype="float32",
+             lookup_backend="fused"),
+    TrainCfg(stage="semi", log_every=1), ckpt_dir=CKPT)
+model, state = train(cfg, iter([(sup, unsup)]), max_steps=1, device="cpu")
+rows = [json.loads(l) for l in open(CKPT + "/metrics.jsonl")]
+print(json.dumps({
+    "step": state.step, "row": rows[-1],
+    "launches": LAUNCHES,
+    "lib_loaded": _build._lib is not None,
+    "leaked": LEAKED,
+}))
+""".replace("LAUNCHES", _LAUNCHES).replace("LEAKED", _LEAKED)
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -57,7 +89,7 @@ def test_cpu_forward_imports_no_jax_and_launches_nothing():
     res = _cpu_forward("plane", 1)
     assert res["leaked"] == []
     assert res["finite"] and res["shape"] == [1, 1, 32, 48, 2]
-    assert res["launches"] == [0] * 7
+    assert res["launches"] == [0] * 9
     assert not res["lib_loaded"]
 
 
@@ -68,7 +100,25 @@ def test_cpu_forward_per_lookup_backend_launches_nothing(backend, batch):
     res = _cpu_forward(backend, batch)
     assert res["leaked"] == []
     assert res["finite"] and res["shape"] == [1, batch, 32, 48, 2]
-    assert res["launches"] == [0] * 7
+    assert res["launches"] == [0] * 9
+    assert not res["lib_loaded"]
+
+
+def test_cpu_semi_train_step_imports_no_jax_and_launches_nothing(tmp_path):
+    """One step of ``training.loop.train`` on the CPU (the fused lookup and its
+    backward as plain PyTorch): finite logs in metrics.jsonl, no kernel
+    launched or built, nothing of JAX, flax or yaml imported."""
+    import json
+
+    proc = _run(_CPU_SEMI_STEP.replace("CKPT", repr(str(tmp_path))))
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["leaked"] == []
+    assert res["step"] == 1
+    for k in ("sup_label_loss", "lfl_loss", "sup_loss", "epe", "lfr_loss", "unsup_loss",
+              "steps_per_sec"):
+        assert isinstance(res["row"][k], float) and res["row"][k] == res["row"][k], k
+    assert res["launches"] == [0] * 9
     assert not res["lib_loaded"]
 
 
@@ -82,6 +132,7 @@ def test_no_source_file_imports_jax():
                     for line in f:
                         s = line.strip()
                         if s.startswith(("import jax", "from jax", "import flax", "from flax",
+                                         "import yaml", "from yaml",
                                          "from flow_supervisor_tpu.", "import flow_supervisor_tpu.")):
                             offenders.append(f"{path}: {s}")
     assert offenders == []
@@ -96,6 +147,27 @@ def test_extract_flow_requires_a_cuda_device(tmp_path):
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    assert proc.returncode != 0
+    assert "needs a CUDA device" in proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["profile_forward", "train"])
+def test_entry_points_require_a_cuda_device(entry, tmp_path):
+    """Without a card, profile_forward raises, and train raises unless the
+    caller passes device='cpu'."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    if entry == "profile_forward":
+        code = ("from flow_supervisor_tpu_torch.profile_forward import main; "
+                "main(['--hw', '16', '16', '--iters', '1'])")
+    else:
+        code = ("from flow_supervisor_tpu_torch.config import ExperimentConfig, ModelCfg; "
+                "from flow_supervisor_tpu_torch.training.loop import train; "
+                "train(ExperimentConfig(ModelCfg(model_type='raft-semi', lookup_backend='fused'), "
+                f"ckpt_dir={str(tmp_path)!r}), iter([]), max_steps=1)")
+    proc = _run(code)
     assert proc.returncode != 0
     assert "needs a CUDA device" in proc.stderr
 

@@ -120,11 +120,22 @@ def test_run_pair_pads_runs_and_unpads(port_model, pair):
 
 @pytest.mark.parametrize(
     "field,value",
-    [("small", True), ("gma", True), ("teacher", True), ("convex_upsampling", False)],
+    [("small", True), ("gma", True), ("convex_upsampling", False)],
 )
 def test_unported_variants_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RAFT(RAFTConfig(**{field: value}))
+
+
+def test_teacher_head_is_built_and_trains_only_through_fused():
+    model = RAFT(RAFTConfig(iters=1, teacher=True, teacher_iters=1))
+    assert sorted(k for k in model.state_dict() if k.startswith("teacher_update_block.")) == sorted(
+        "teacher_" + k for k in model.state_dict() if k.startswith("update_block."))
+    img = torch.zeros(1, 16, 16, 3)
+    with pytest.raises(NotImplementedError, match="fused"):  # plane has no backward yet
+        model.semi_forward(img, img, img, img, torch.zeros(1, 2, dtype=torch.long))
+    with pytest.raises(ValueError, match="teacher=True"):
+        RAFT(RAFTConfig(iters=1)).semi_forward(img, img, img, img, torch.zeros(1, 2))
 
 
 @pytest.fixture(scope="module")
