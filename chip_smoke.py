@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's RAFT inference path and its flow-supervisor
-(semi) train step on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's RAFT inference path, its three train steps
+(Baseline, Unsup, flow-supervisor semi with and without the teacher SMURF
+loss) and the two kernels that no model path reaches (K5, K11) on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Prints the card's name and power limit (as nvidia-smi gives them), builds
 the hand-written CUDA kernels of flow_supervisor_tpu_torch from the sources
-in this checkout (one nvcc per source, in parallel), then runs six phases,
+in this checkout (one nvcc per source, in parallel), then runs its phases,
 each printing one JSON line per check or configuration:
 
 1. kernels: K1 (corr_plane), K2 (conv3x3 + stats), K3/K4 (instance norm),
-   K6/K7 (corr_fused, all levels / per level), K10 (corr_window) and K8/K9
-   (the fused lookup's backward, bwd_df1 / bwd_df2) on the card against
-   their plain PyTorch versions at the main paths' shapes and ragged ones,
-   fp32 (TF32 off) and bf16, with lookup coords in bounds, partly out and
-   far out of bounds;
+   K5 (conv3x3, no statistics, relu on and off), K6/K7 (corr_fused, all
+   levels / per level), K10 (corr_window), K8/K9 (the fused lookup's
+   backward, bwd_df1 / bwd_df2) and K11 (corr_lookup, the 5-D volume's
+   window) on the card against their plain PyTorch versions at the main
+   paths' shapes and ragged ones, fp32 (TF32 off) and bf16, with lookup
+   coords in bounds, partly out and far out of bounds;
 2. parity: a 216x512, 12-iteration fp32 forward on the card (kernels) against
    the same model and weights on the CPU (plain versions), for each lookup
    backend (plane, fused, pallas);
@@ -26,23 +29,35 @@ each printing one JSON line per check or configuration:
    last lookup; the encoder kernels K2-K4 are timed at B=1. Kernel, plain
    and library times are device time (the timed calls queue behind a spin
    kernel); the forward's time is back to back, host included;
+   own_paths: K5 and K11 through their own public functions
+   (``conv3x3_fused``, ``corr_pyramid_lookup_pallas``), the JAX package's
+   only callers, with the launch counters reset: K5 at the fnet stage shapes
+   of a 448x1024 forward (10 calls), K11 on the 448x1024 volume pyramid at
+   the coords of a forward's 12 lookups (48 launches); each timed against its
+   plain version and a library call;
 4. requests: ``run_pair`` on three Sintel-size pairs, writing and reading
    back ``.flo`` files;
-5. train_parity: one semi train step at fp32 on the card against the same
-   step on the CPU (64x96 crops of 96x128 frames, 3 + 3 iterations): losses,
-   merged gradients and updated parameters, within the PARITY_* limits;
-6. train_main: the Sintel recipe's semi step (B=1, 400x720 and 368x768
-   crops of 432x1024 frames, 12 + 12 iterations, bf16) through
-   ``training.loop.train`` for two steps with the launch counters reset,
-   which must launch each kernel the expected number of times; then steps/s
-   over five steps by CUDA events, peak memory, device time and idle share
-   of one step (torch.profiler), and K8/K9 timed against their plain
-   versions on the step's lookup inputs.
+5. train_parity: one train step at fp32 on the card against the same step
+   on the CPU (3 iterations, 64x96 crops of 96x128 frames), for each step
+   kind: semi (Sintel recipe), Unsup (default loss, wang), semi with the
+   teacher SMURF loss (brox, census 1, smooth2 2) and Baseline (B=2, unfrozen
+   batch norm, whose running statistics are compared too): losses, merged
+   gradients and updated parameters, within the PARITY_* limits;
+6. train_main: the recipes' steps through ``training.loop.train`` at full
+   width for two steps with the launch counters reset, which must launch
+   each kernel the expected number of times; then steps/s over five steps by
+   CUDA events, peak memory, device time and idle share of one step
+   (torch.profiler): the Sintel semi step (B=1, 400x720 and 368x768 crops
+   of 432x1024 frames, 12 + 12 iterations, bf16; K8/K9 timed against their
+   plain versions on its lookup inputs), the KITTI semi step with the
+   teacher SMURF loss (360x640 and 288x640 crops of 368x1240 frames), the
+   Unsup step (368x768 crops of 432x1024 frames) and the chairs Baseline step
+   (B=10, 368x496, unfrozen batch norm).
 
 Then it prints a JSON line of the kernels (launches in their configuration's
 main-path run, max error, kernel, plain and library ms per forward (K8/K9:
-per train step), and the least time the card could take for the same work)
-and last
+per train step; K5: per forward's fnet stage convs; K11: per 12 lookups),
+and the least time the card could take for the same work) and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
 non-zero; so does a machine without a CUDA device. It imports nothing of JAX.
 """
@@ -88,6 +103,10 @@ SOURCES = {
                 "flow_supervisor_tpu/kernels/corr_fused.py:735"),
     "bwd_df2": ("flow_supervisor_tpu_torch/csrc/corr_fused_bwd.cu",
                 "flow_supervisor_tpu/kernels/corr_fused.py:751"),
+    "conv3x3_bare": ("flow_supervisor_tpu_torch/csrc/conv3x3.cu",
+                     "flow_supervisor_tpu/kernels/conv3x3.py:59"),
+    "corr_lookup_volume": ("flow_supervisor_tpu_torch/csrc/corr_lookup.cu",
+                           "flow_supervisor_tpu/kernels/corr_lookup.py:40"),
 }
 # the Sintel flow-supervisor recipe (train.sh): B=1, a 400x720 supervised and
 # a 368x768 unsupervised crop of 432x1024 frames, 12 student and 12 teacher
@@ -108,6 +127,43 @@ TRAIN_LAUNCHES = {"conv3x3_stats": 40, "norm_stats": 20, "norm_apply": 60,
                   "corr_fused_all": 72, "bwd_df1": 36, "bwd_df2": 36}
 # K8 / K9 calls per step at each lookup shape: sup 50x90 (12), unsup 46x96 (24)
 TRAIN_BWD_CALLS = {"sup": 12, "unsup": 24}
+# the KITTI flow-supervisor recipe with the teacher SMURF loss (train.sh:25-34):
+# B=1, 360x640 sup and 288x640 unsup crops of 368x1240 frames, 12 + 12
+# iterations, lfl_loss_decay_rate 0.8, census 1, smooth1 0, smooth2 2, brox
+KITTI_FULL, KITTI_SUP, KITTI_UNSUP = (368, 1240), (360, 640), (288, 640)
+# the chairs Baseline stage (train.sh:4-6): B=10, 368x496, 12 iterations,
+# lr 4e-4 onecycle, weight decay 1e-4, unfrozen batch norm
+CHAIRS_HW, CHAIRS_BATCH = (368, 496), 10
+# (ModelCfg, TrainCfg) fields of each step kind; the Unsup step runs the
+# default loss (census 1, smooth1 2.5, selfsup 0.3, wang) with frozen batch
+# norm at the Sintel shapes (368x768 crops of 432x1024 frames)
+STEP_RECIPES = {
+    "semi": (RECIPE_MODEL, RECIPE_TRAIN),
+    "unsup": (dict(model_type="raft-unsup", iters=ITERS, lookup_backend="fused"),
+              dict(RECIPE_TRAIN, stage="sintel_unsup", lr=1e-4)),
+    "smurf": (dict(RECIPE_MODEL, lfl_loss_decay_rate=0.8, teacher_smurf_weight=1.0,
+                   census_weight=1.0, smooth1_weight=0.0, smooth2_weight=2.0, occlusion="brox"),
+              dict(RECIPE_TRAIN, stage="semi-kitti_unsup_test-things_unsup")),
+    "baseline": (dict(model_type="raft-baseline", iters=ITERS, lookup_backend="fused"),
+                 dict(stage="chairs", lr=4e-4, lr_schedule="onecycle", weight_decay=1e-4,
+                      clip_norm=1.0, log_every=1)),
+}
+RECIPE_NAMES = {"semi": "semi sintel (train.sh)", "unsup": "unsup, sintel shapes, default loss",
+                "smurf": "semi kitti with teacher SMURF (train.sh)",
+                "baseline": "baseline chairs (train.sh)"}
+# launches of each kernel per step. The KITTI semi step launches what the
+# Sintel one does (the teacher SMURF loss adds no kernel; the teacher's
+# pyramid still carries no gradient). Unsup: fnet twice (the teacher on the
+# full frames, the student on the crops), 2 directions x 12 lookups each
+# (K6), K8 / K9 for the student's 24. Baseline (B=10): fnet once, 12 lookups
+# of one K7 per level, K8 / K9 for each lookup.
+STEP_LAUNCHES = {
+    "semi": TRAIN_LAUNCHES, "smurf": TRAIN_LAUNCHES,
+    "unsup": {"conv3x3_stats": 20, "norm_stats": 10, "norm_apply": 30, "corr_fused_all": 48,
+              "bwd_df1": 24, "bwd_df2": 24},
+    "baseline": {"conv3x3_stats": 10, "norm_stats": 5, "norm_apply": 15,
+                 "corr_fused_level": ITERS * LEVELS, "bwd_df1": ITERS, "bwd_df2": ITERS},
+}
 # Limits of the card-vs-CPU semi step (phase 5: fp32, 64x96 crops, 3 + 3
 # iterations). The step is chaotic at fp32 rounding (ReLU kinks and bilinear
 # taps through the loops): scaling every weight by 1 + 2^-24 * N(0, 1) moves
@@ -125,6 +181,17 @@ PARITY_FNET_GRAD_L2 = 4e-3  # the same, for fnet's variables
 PARITY_NOISE_BIAS = 1e-4  # biases before instance norm, relative to their weight's gradient
 PARITY_UPDATE_MAX_LR = 2.0 + 1e-3
 PARITY_UPDATE_SHARE = 0.999
+# the Unsup step's census loss has a gradient ill-conditioned in fp32 (the
+# summation order alone moves it by about 2e-4 of its largest,
+# tests/test_torch_train_unsup.py): a 2^-24 weight perturbation leaves only
+# 99.4 % of its updates within 1e-2 lr (tests/test_torch_train_parity_steps.py),
+# so its share is held at 99 %
+PARITY_UPDATE_SHARE_BY_STEP = {"unsup": 0.99}
+# Baseline's running batch-norm statistics: how far the step moved each, held
+# relative to the CPU step's largest move. A 2^-24 weight perturbation moves
+# them by about 7e-6, running_var moved toward the unbiased batch variance
+# (nn.BatchNorm2d's rule) by 7.5e-3 (tests/test_torch_train_parity_steps.py)
+PARITY_STATS_UPDATE_REL = 2e-4
 # launches of each kernel in one 448x1024 forward, at any batch: fnet runs
 # once over the 2B images, with 10 3x3 stride-1 conv -> instance-norm -> relu
 # pairs (K2 + K4) and 5 other instance norms (stem, two stride-2 conv1s, two
@@ -142,7 +209,8 @@ CONFIGS = [("plane", 1), ("fused", 1), ("fused", 8), ("pallas", 1), ("plane", 8)
 HOME_CONFIG = {"corr_plane": ("plane", 1), "conv3x3_stats": ("plane", 1),
                "norm_stats": ("plane", 1), "norm_apply": ("plane", 1),
                "corr_fused_all": ("fused", 1), "corr_fused_level": ("fused", 8),
-               "corr_window": ("pallas", 1), "bwd_df1": ("train", 1), "bwd_df2": ("train", 1)}
+               "corr_window": ("pallas", 1), "bwd_df1": ("train", 1), "bwd_df2": ("train", 1),
+               "conv3x3_bare": ("own", 1), "corr_lookup_volume": ("own", 1)}
 # fnet shapes at 448x1024 (B=1: the pair runs through fnet together) and how
 # many times one forward runs each kernel there
 CONV_SHAPES = [((2, 224, 512, 64), 64, 4), ((2, 112, 256, 96), 96, 3), ((2, 56, 128, 128), 128, 3)]
@@ -163,22 +231,28 @@ def gpu_line() -> str:
 
 
 def launch_counts() -> dict:
-    from flow_supervisor_tpu_torch.kernels import conv3x3, corr_fused, corr_lookup_v2, corr_plane, norm
+    from flow_supervisor_tpu_torch.kernels import (
+        conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm,
+    )
 
     return {"corr_plane": corr_plane.launches, "conv3x3_stats": conv3x3.launches,
             "norm_stats": norm.stats_launches, "norm_apply": norm.apply_launches,
             "corr_fused_all": corr_fused.all_launches,
             "corr_fused_level": corr_fused.level_launches,
             "corr_window": corr_lookup_v2.launches,
-            "bwd_df1": corr_fused.bwd_df1_launches, "bwd_df2": corr_fused.bwd_df2_launches}
+            "bwd_df1": corr_fused.bwd_df1_launches, "bwd_df2": corr_fused.bwd_df2_launches,
+            "conv3x3_bare": conv3x3.bare_launches, "corr_lookup_volume": corr_lookup.launches}
 
 
 def reset_launch_counts() -> None:
-    from flow_supervisor_tpu_torch.kernels import conv3x3, corr_fused, corr_lookup_v2, corr_plane, norm
+    from flow_supervisor_tpu_torch.kernels import (
+        conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm,
+    )
 
     corr_plane.launches = conv3x3.launches = norm.stats_launches = norm.apply_launches = 0
     corr_fused.all_launches = corr_fused.level_launches = corr_lookup_v2.launches = 0
     corr_fused.bwd_df1_launches = corr_fused.bwd_df2_launches = 0
+    conv3x3.bare_launches = corr_lookup.launches = 0
 
 
 def time_ms(fn, reps=20, warm=3, device_only=False) -> float:
@@ -291,9 +365,11 @@ def support_taps(coords, shapes) -> int:
 def phase_kernels(dev):
     import torch
 
-    from flow_supervisor_tpu_torch.kernels import conv3x3, corr_fused, corr_lookup_v2, corr_plane, norm
+    from flow_supervisor_tpu_torch.kernels import (
+        conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm,
+    )
     from flow_supervisor_tpu_torch.kernels.corr_plane import build_plane_pyramid
-    from flow_supervisor_tpu_torch.ops.corr import window_support
+    from flow_supervisor_tpu_torch.ops.corr import build_corr_pyramid_from_fmaps, window_support
 
     gen = torch.Generator().manual_seed(1)
     errs, checks = {k: 0.0 for k in SOURCES}, []
@@ -403,6 +479,37 @@ def phase_kernels(dev):
                     errs["norm_apply"] = max(errs["norm_apply"], ea)
             if bf16:
                 errs["norm_stats"] = max(errs["norm_stats"], e)
+        # K5: the fnet stage shapes and a ragged one, relu off and on; fp32:
+        # only the summation order of 9*C <= 1152 terms differs
+        for shape, cout, _ in CONV_SHAPES + [((2, 55, 90, 128), 72, 0)]:
+            c = shape[3]
+            x = torch.randn(*shape, generator=gen).to(dev, dtype)
+            w = (torch.randn(3, 3, c, cout, generator=gen) * (2.0 / (9 * cout)) ** 0.5).to(dev, dtype)
+            b = (0.1 * torch.randn(cout, generator=gen)).to(dev, dtype)
+            for relu in (False, True):
+                e = check_close(f"K5 {shape} relu={relu} {dtype}", conv3x3.conv3x3_bare(x, w, b, relu),
+                                conv3x3.conv3x3_bare_plain(x, w, b, relu), 1e-2 if bf16 else 1e-4, 1e-5)
+                checks.append({"kernel": "conv3x3_bare", "shape": list(shape), "cout": cout,
+                               "relu": relu, "dtype": str(dtype), "err": e})
+                if bf16 and shape[1] != 55:
+                    errs["conv3x3_bare"] = max(errs["conv3x3_bare"], e)
+        # K11: volumes in dtype (read as fp32, fp32 out) at the ragged 55x127
+        # and the 448x1024 shape (level 0: 7168 x 7168); the same bilinear
+        # formula on the same values, so fp32 rounding only
+        for h8, w8 in ((55, 127), main8):
+            f1, f2 = fmaps(1, h8, w8, dtype, gen, dev)
+            vols = build_corr_pyramid_from_fmaps(f1, f2, LEVELS, dtype)
+            del f1, f2
+            coords = check_coords(h8 * w8, h8, w8, gen, dev).reshape(1, h8, w8, 2)
+            got = corr_lookup.corr_pyramid_lookup_pallas(vols, coords, RADIUS)
+            want = torch.cat([corr_lookup.lookup_level_plain(v, coords / 2.0 ** i, RADIUS)
+                              for i, v in enumerate(vols)], -1)
+            e = check_close(f"K11 {h8}x{w8} {dtype}", got, want, 1e-5, 1e-5)
+            checks.append({"kernel": "corr_lookup_volume", "shape": [h8, w8], "dtype": str(dtype),
+                           "err": e})
+            if (h8, w8) == main8:
+                errs["corr_lookup_volume"] = max(errs["corr_lookup_volume"], e)
+            del vols, got, want
     torch.cuda.synchronize()
     emit({"phase": "kernels", "ok": True, "checks": checks})
     return errs
@@ -433,6 +540,32 @@ def phase_parity(dev):
             raise AssertionError(f"end-to-end parity failed: {res}")
 
 
+def grid_sample_library(planes, coords, dev):
+    """RAFT's own sampler as one library call per level: F.grid_sample over
+    [BQ, 1, h2, w2] fp32 copies of the planes [BQ, h2, w2] (a bf16 grid cannot
+    hold the coords) at coords [BQ, 2] / 2^level, the grid laid out so that
+    the output is dx-major. Returns the calls as one function."""
+    import torch
+    import torch.nn.functional as F
+
+    bq = coords.shape[0]
+    d = torch.arange(-RADIUS, RADIUS + 1, device=dev, dtype=torch.float32)
+    p32, grids = [], []
+    for lvl, plane in enumerate(planes):
+        h2, w2 = plane.shape[1:]
+        c = coords * (1.0 / 2 ** lvl)
+        gx = (c[:, 0, None, None] + d[None, :, None]).expand(bq, 2 * RADIUS + 1, 2 * RADIUS + 1)
+        gy = (c[:, 1, None, None] + d[None, None, :]).expand(bq, 2 * RADIUS + 1, 2 * RADIUS + 1)
+        grids.append(torch.stack([2 * gx / max(w2 - 1, 1) - 1, 2 * gy / max(h2 - 1, 1) - 1], -1))
+        p32.append(plane.float()[:, None])
+
+    def library():
+        return [F.grid_sample(pl, g, mode="bilinear", padding_mode="zeros", align_corners=True)
+                for pl, g in zip(p32, grids)]
+
+    return library
+
+
 def lookup_timing(backend, batch, pyramid, coords, dev):
     """The configuration's lookup kernel against its plain version (and a
     library call where one computes the same function) on the inputs of the
@@ -455,28 +588,12 @@ def lookup_timing(backend, batch, pyramid, coords, dev):
                      lambda: corr_plane.corr_lookup_plain(planes, coords, RADIUS, bf16))
         nbytes = support_taps(coords, shapes) * 2 + coords.numel() * 4 + out_bytes
         ops = bq * LEVELS * K2 * COMBINE_FLOPS
-        # RAFT's own sampler: F.grid_sample over [BQ, 1, h2, w2] fp32 copies of
-        # the planes (a bf16 grid cannot hold the coords), one call per level,
-        # the grid laid out so that the output is dx-major
-        d = torch.arange(-RADIUS, RADIUS + 1, device=dev, dtype=torch.float32)
-        p32, grids = [], []
-        for lvl, plane in enumerate(planes):
-            h2, w2 = plane.shape[1:]
-            c = coords * (1.0 / 2 ** lvl)
-            gx = (c[:, 0, None, None] + d[None, :, None]).expand(bq, 2 * RADIUS + 1, 2 * RADIUS + 1)
-            gy = (c[:, 1, None, None] + d[None, None, :]).expand(bq, 2 * RADIUS + 1, 2 * RADIUS + 1)
-            grids.append(torch.stack([2 * gx / max(w2 - 1, 1) - 1, 2 * gy / max(h2 - 1, 1) - 1], -1))
-            p32.append(plane.float()[:, None])
-
-        def library():
-            return [F.grid_sample(pl, g, mode="bilinear", padding_mode="zeros", align_corners=True)
-                    for pl, g in zip(p32, grids)]
-
+        library = grid_sample_library(planes, coords, dev)
         lib_out = torch.cat([o.reshape(bq, K2) for o in library()], 1)
         library_err = float((lib_out - corr_plane.corr_lookup_plain(
             planes, coords, RADIUS, torch.float32)).abs().max())
         library_ms = time_ms(library, device_only=True) * ITERS
-        del p32, grids, lib_out
+        del library, lib_out
         in_dtype = planes[0].dtype
     elif backend == "fused":
         f1, f2s = pyramid.f1, pyramid.f2s
@@ -649,6 +766,114 @@ def phase_main_path(dev):
     return launches, times
 
 
+def phase_own_paths(dev):
+    """K5 and K11 through their own public functions, the only callers the
+    JAX package has (no model path reaches either): ``conv3x3_fused`` at the
+    fnet stage shapes of a 448x1024 forward, each as many times as a forward
+    runs a 3x3 stride-1 conv there (10 calls, the shapes tools/exp_pconv.py
+    times), and ``corr_pyramid_lookup_pallas`` on the fp32 volume pyramid of
+    a 448x1024 pair at the coords of its forward's 12 lookups (4 launches
+    each), with the launch counters reset. Then each is timed against its
+    plain version and a library call: ms per forward's convs and per 12
+    lookups, device time."""
+    import torch
+    import torch.nn.functional as F
+
+    from flow_supervisor_tpu_torch.kernels import conv3x3, corr_lookup
+    from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
+    from flow_supervisor_tpu_torch.ops.coords import coords_grid
+    from flow_supervisor_tpu_torch.ops.corr import build_corr_pyramid_from_fmaps
+
+    gen = torch.Generator().manual_seed(9)
+    bf16 = torch.bfloat16
+    convs = []
+    for shape, cout, n in CONV_SHAPES:
+        c = shape[3]
+        x = torch.randn(*shape, generator=gen).to(dev, bf16)
+        w = (torch.randn(3, 3, c, cout, generator=gen) * (2.0 / (9 * cout)) ** 0.5).to(dev, bf16)
+        b = (0.1 * torch.randn(cout, generator=gen)).to(dev, bf16)
+        convs.append((x, w, b, n))
+    model = RAFT(RAFTConfig(iters=ITERS, dtype=bf16, lookup_backend="fused"), generator=gen).to(dev)
+    img1, img2 = (t.to(dev) for t in synthetic_pair(1, *MAIN_HW, gen))
+    h8, w8 = MAIN_HW[0] // 8, MAIN_HW[1] // 8
+    with torch.no_grad():
+        flow_low = model(img1, img2, final_flow_only=True)["flow_low"]
+        vols = build_corr_pyramid_from_fmaps(*model.features(img1, img2), LEVELS)
+    c0 = coords_grid(1, h8, w8, device=dev)
+    coords = [c0] + [(c0 + f).contiguous() for f in flow_low[:-1]]  # lookup i reads coords1
+    del model, img1, img2, flow_low
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ys = [conv3x3.conv3x3_fused(x, w, b) for x, w, b, n in convs for _ in range(n)]
+    outs = [corr_lookup.corr_pyramid_lookup_pallas(vols, c, RADIUS) for c in coords]
+    torch.cuda.synchronize()
+    got = launch_counts()
+    want = {k: 0 for k in SOURCES}
+    want.update(conv3x3_bare=sum(n for *_, n in convs), corr_lookup_volume=ITERS * LEVELS)
+    if got != want:
+        raise AssertionError(f"own paths: launch counts {got} != expected {want}")
+    x, w, b, _ = convs[-1]
+    e5 = check_close("K5 own path", ys[-1], conv3x3.conv3x3_bare_plain(x, w, b), 1e-2, 1e-5)
+    want11 = torch.cat([corr_lookup.lookup_level_plain(v, coords[-1] / 2.0 ** i, RADIUS)
+                        for i, v in enumerate(vols)], -1)
+    e11 = check_close("K11 own path", outs[-1], want11, 1e-5, 1e-5)
+    if tuple(outs[-1].shape) != (1, h8, w8, LEVELS * K2):
+        raise AssertionError(f"K11 own path: output shape {tuple(outs[-1].shape)}")
+    del ys, outs, want11
+
+    times = {}
+    t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "t_bytes": 0.0,
+         "t_ops": 0.0, "per_call": []}
+    for x, w, b, n in convs:
+        k, p = ab_ms(lambda: conv3x3.conv3x3_fused(x, w, b),
+                     lambda: conv3x3.conv3x3_bare_plain(x, w, b))
+        xn = x.permute(0, 3, 1, 2)
+        wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        lib = time_ms(lambda: F.conv2d(xn, wn, b, padding=1), device_only=True)
+        bsz, h, wd, c = x.shape
+        cout = w.shape[3]
+        # K2's operations; bytes: x, w, b read once, y written once (bf16)
+        tb, to = bound(2 * (x.numel() + w.numel() + cout + bsz * h * wd * cout),
+                       2 * bsz * h * wd * cout * 9 * c, bf16)
+        t["ms"] += n * k
+        t["plain_ms"] += n * p
+        t["library_ms"] += n * lib
+        t["bound_ms"] += n * max(tb, to)
+        t["t_bytes"] += n * tb
+        t["t_ops"] += n * to
+        t["per_call"].append([list(x.shape), cout, k, p, lib])
+    t["bound_by"] = "bytes" if t.pop("t_bytes") >= t.pop("t_ops") else "operations"
+    t["launches"], t["max_abs_err_own_path"] = got["conv3x3_bare"], e5
+    times["conv3x3_bare"] = t
+
+    c = coords[-1]
+    flat = c.reshape(-1, 2)
+    planes = [v.reshape(-1, v.shape[3], v.shape[4]) for v in vols]
+    k, p = ab_ms(lambda: corr_lookup.corr_pyramid_lookup_pallas(vols, c, RADIUS),
+                 lambda: [corr_lookup.lookup_level_plain(v, c / 2.0 ** i, RADIUS)
+                          for i, v in enumerate(vols)])
+    library = grid_sample_library(planes, flat, dev)
+    lib_ms = time_ms(library, device_only=True)
+    del library
+    bq = flat.shape[0]
+    # K1's tap bytes, from the fp32 volume: the support taps inside the planes
+    # at these coords, the coords, and the fp32 output
+    shapes = [(lvl, tuple(pl.shape[1:])) for lvl, pl in enumerate(planes)]
+    nbytes = support_taps(flat, shapes) * 4 + flat.numel() * 4 + bq * LEVELS * K2 * 4
+    tb, to = bound(nbytes, bq * LEVELS * K2 * COMBINE_FLOPS, torch.float32)
+    times["corr_lookup_volume"] = {
+        "ms": k * ITERS, "plain_ms": p * ITERS, "library_ms": lib_ms * ITERS,
+        "bound_ms": max(tb, to) * ITERS, "bound_by": "bytes" if tb >= to else "operations",
+        "bytes_per_call": nbytes, "launches": got["corr_lookup_volume"],
+        "max_abs_err_own_path": e11}
+    del vols, planes
+    torch.cuda.empty_cache()
+    emit({"phase": "own_paths", "ok": True, "launches": got, "hw": list(MAIN_HW),
+          "kernels": times})
+    return got, times
+
+
 def phase_requests(dev):
     import numpy as np
     import torch
@@ -679,18 +904,34 @@ def phase_requests(dev):
           "dtype": "float32", "pairs": done})
 
 
-def noise_bias(name: str) -> bool:
-    """An fnet conv bias that an instance norm follows: its gradient is zero
-    in exact arithmetic, fp32 noise in practice."""
-    return name.startswith("fnet.") and name.endswith(".bias") and name != "fnet.conv2.bias"
+def noise_bias(name: str, bn_train: bool = False) -> bool:
+    """A conv bias that a normalization by the batch's own statistics follows
+    (all but each encoder's last conv): in fnet (instance norm) and, with
+    unfrozen batch norm, in cnet. Its gradient is zero in exact arithmetic,
+    fp32 noise in practice."""
+    nets = ("fnet", "cnet") if bn_train else ("fnet",)
+    net = name.split(".")[0]
+    return net in nets and name.endswith(".bias") and not name.endswith(
+        (".norm1.bias", ".norm2.bias", ".downsample.1.bias")) and name != f"{net}.conv2.bias"
+
+
+def flow_label(b, h, w, gen):
+    """(flow [b, h, w, 2], valid [b, h, w, 1]): a smooth random flow with
+    about 10 % of its pixels invalid, CPU tensors."""
+    import torch
+    import torch.nn.functional as F
+
+    low = 4.0 * torch.randn(b, 2, h // 32 + 2, w // 32 + 2, generator=gen)
+    flow = F.interpolate(low, size=(h, w), mode="bilinear").permute(0, 2, 3, 1).contiguous()
+    return flow, (torch.rand(b, h, w, 1, generator=gen) > 0.1).float()
 
 
 def recipe_batches(sup_hw, unsup_hw, full_hw, gen, sup_yx, unsup_yx):
     """(sup, unsup) batches of the semi step's contract, B=1, CPU tensors:
     smooth random frames, crops at (y, x), and for sup a smooth random flow
-    label with about 10 % of its pixels invalid."""
+    label with about 10 % of its pixels invalid. The unsup batch is also the
+    Unsup step's."""
     import torch
-    import torch.nn.functional as F
 
     out = []
     for (h, w), (y, x), shift in ((sup_hw, sup_yx, (2, 3)), (unsup_hw, unsup_yx, (4, 1))):
@@ -699,111 +940,147 @@ def recipe_batches(sup_hw, unsup_hw, full_hw, gen, sup_yx, unsup_yx):
                     "image2": full2[:, y : y + h, x : x + w].contiguous(),
                     "orig_image1": full1, "orig_image2": full2,
                     "crop_yx": torch.tensor([[y, x]])})
-    h, w = sup_hw
-    low = 4.0 * torch.randn(1, 2, h // 32 + 2, w // 32 + 2, generator=gen)
-    out[0]["flow"] = F.interpolate(low, size=(h, w), mode="bilinear").permute(0, 2, 3, 1).contiguous()
-    out[0]["valid"] = (torch.rand(1, h, w, 1, generator=gen) > 0.1).float()
+    out[0]["flow"], out[0]["valid"] = flow_label(1, *sup_hw, gen)
     return out[0], out[1]
 
 
-def parity_setup():
-    """The train-parity step: the recipe's config at fp32 with 3 + 3
-    iterations, random weights (a state dict) with non-trivial frozen batch
-    norm, and (sup, unsup) batches cut as 64x96 crops of 96x128 frames."""
+def labeled_batch(b, hw, gen):
+    """A Baseline batch, CPU tensors: smooth random pairs [b, h, w, 3] and a
+    smooth random flow label."""
+    img1, img2 = synthetic_pair(b, *hw, gen)
+    flow, valid = flow_label(b, *hw, gen)
+    return {"image1": img1, "image2": img2, "flow": flow, "valid": valid}
+
+
+def parity_cfg(kind: str):
+    """The card-vs-CPU step's config for a step kind: the recipe's at fp32
+    with PARITY_ITERS iterations."""
+    from flow_supervisor_tpu_torch.config import ExperimentConfig, ModelCfg, TrainCfg
+
+    model, train = STEP_RECIPES[kind]
+    return ExperimentConfig(
+        ModelCfg(**dict(model, iters=PARITY_ITERS, teacher_iters=PARITY_ITERS,
+                        compute_dtype="float32")),
+        TrainCfg(**train))
+
+
+def step_parity_setup(kind: str):
+    """The train-parity step of a kind ("semi", "unsup", "smurf",
+    "baseline"): its config, random weights (a state dict) with non-trivial
+    batch-norm statistics and affine parameters, and its batch, cut as 64x96
+    crops of 96x128 frames (Baseline: B=2, 64x96)."""
     import torch
 
-    from flow_supervisor_tpu_torch.config import ExperimentConfig, ModelCfg, TrainCfg
     from flow_supervisor_tpu_torch.training.loop import build_model
 
     gen = torch.Generator().manual_seed(6)
-    cfg = ExperimentConfig(
-        ModelCfg(**dict(RECIPE_MODEL, iters=PARITY_ITERS, teacher_iters=PARITY_ITERS,
-                        compute_dtype="float32")),
-        TrainCfg(**RECIPE_TRAIN))
+    cfg = parity_cfg(kind)
     base = build_model(cfg, gen)
     for m in base.modules():
         if isinstance(m, torch.nn.BatchNorm2d):
             for t in (m.running_mean, m.running_var, m.weight, m.bias):
                 t.data.uniform_(0.5, 1.5, generator=gen)
-    sup, unsup = recipe_batches((64, 96), (64, 96), (96, 128), gen, (16, 8), (24, 32))
-    return cfg, base.state_dict(), sup, unsup
+    if kind == "baseline":
+        batch = labeled_batch(2, (64, 96), gen)
+    else:
+        batch = recipe_batches((64, 96), (64, 96), (96, 128), gen, (16, 8), (24, 32))
+        batch = batch[1] if kind == "unsup" else batch
+    return cfg, base.state_dict(), batch
 
 
-def semi_step_outputs(cfg, weights, sup, unsup, device):
-    """One semi step from ``weights`` on ``device`` -> (logs, merged
-    gradients, parameters after the step, parameters before), on the CPU."""
-    import torch
+def to_device(batch, device):
+    """A batch dict, or a (sup, unsup) pair of them, on ``device``."""
+    if isinstance(batch, tuple):
+        return tuple(to_device(b, device) for b in batch)
+    return {k: v.to(device) for k, v in batch.items()}
 
-    from flow_supervisor_tpu_torch.training.loop import build_model
+
+def step_outputs(cfg, weights, batch, device):
+    """One train step of cfg's model type from ``weights`` on ``device`` ->
+    (logs, gradients, parameters after the step, parameters before, how far
+    the step moved each running batch-norm statistic), on the CPU."""
+    from flow_supervisor_tpu_torch.training.loop import build_model, make_step
     from flow_supervisor_tpu_torch.training.optim import batchnorm_params, make_optimizer
-    from flow_supervisor_tpu_torch.training.semi import make_semi_train_step
     from flow_supervisor_tpu_torch.training.state import TrainState
 
     model = build_model(cfg)
     model.load_state_dict(weights)
     model.to(device)
     before = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
-    state = TrainState.create(dict(model.named_parameters()),
-                              make_optimizer(cfg.train, batchnorm_params(model)))
-    step = make_semi_train_step(model, cfg.model, gamma=cfg.train.loss_decay_rate,
-                                sup_loss_type=cfg.train.loss_type, debug_grads=True)
-    state, log = step(state, {k: v.to(device) for k, v in sup.items()},
-                      {k: v.to(device) for k, v in unsup.items()})
-    grads = {k: g.detach().cpu() for k, g in log.pop("_merged_grads").items()}
+    frozen = batchnorm_params(model) if model.cfg.freeze_bn else ()
+    state = TrainState.create(dict(model.named_parameters()), make_optimizer(cfg.train, frozen))
+    state, log = make_step(model, cfg, debug_grads=True)(state, to_device(batch, device))
+    grads = {k: g.detach().cpu() for k, g in log.pop("_grads").items()}
     params = {k: p.detach().cpu() for k, p in state.params.items()}
-    return {k: float(v) for k, v in log.items()}, grads, params, before
+    stat_updates = {k: v.detach().cpu() - weights[k] for k, v in model.state_dict().items()
+                    if k.endswith(("running_mean", "running_var"))}
+    return {k: float(v) for k, v in log.items()}, grads, params, before, stat_updates
 
 
-def parity_errors(run, ref, lr):
-    """How far one semi step's outputs (``semi_step_outputs``) lie from a
-    reference step's: losses, per-variable gradients and updates."""
+def parity_errors(run, ref, lr, bn_train: bool = False):
+    """How far one step's outputs (``step_outputs``) lie from a reference
+    step's: losses, per-variable gradients and updates, and the updates of
+    the running statistics where batch norm trains."""
     import torch
 
-    (lg, gr, pr, before), (lc, gc, pc, _) = run, ref
+    (lg, gr, pr, before), (lc, gc, pc, _) = run[:4], ref[:4]
     upd = torch.cat([((pr[k] - before[k]) - (pc[k] - before[k])).abs().flatten()
-                     for k in pc if not noise_bias(k)]) / lr
-    l2 = {k: float((gr[k] - gc[k]).norm() / gc[k].norm()) for k in gc if not noise_bias(k)}
-    return {
+                     for k in pc if not noise_bias(k, bn_train)]) / lr
+    l2 = {k: float((gr[k] - gc[k]).norm() / gc[k].norm())
+          for k in gc if not noise_bias(k, bn_train) and gc[k].norm() > 0}
+    err = {
         "max_rel_err_losses": max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc),
         "max_grad_l2": max(l2.values()),
         "max_fnet_grad_l2": max(v for k, v in l2.items() if k.startswith("fnet.")),
         "worst_grad_vars": sorted(l2, key=l2.get)[-3:],
         "max_noise_bias_grad_rel_to_weight": max(
             float(torch.maximum(gr[k].abs().max(), gc[k].abs().max())
-                  / gc[k[: -len("bias")] + "weight"].abs().max()) for k in gc if noise_bias(k)),
+                  / gc[k[: -len("bias")] + "weight"].abs().max())
+            for k in gc if noise_bias(k, bn_train)),
         "max_rel_err_params": max(float((pr[k] - pc[k]).abs().max() / pc[k].abs().max())
                                   for k in pc),
         "max_update_err_lr": float(upd.max()),
         "share_updates_within_1e-2_lr": float((upd <= 1e-2).float().mean()),
         "finite": all(math.isfinite(v) for v in lg.values()),
     }
+    if len(run) > 4 and bn_train:
+        err["max_rel_err_running_stats_update"] = max(
+            float((run[4][k] - ref[4][k]).abs().max() / ref[4][k].abs().max()) for k in ref[4])
+    return err
 
 
-def parity_ok(err) -> bool:
-    """The limits of the card-vs-CPU train step (see PARITY_*)."""
+def parity_ok(err, kind: str = "semi") -> bool:
+    """The limits of the card-vs-CPU train step of a kind (see PARITY_*)."""
+    share = PARITY_UPDATE_SHARE_BY_STEP.get(kind, PARITY_UPDATE_SHARE)
     return bool(
         err["finite"] and err["max_rel_err_losses"] < PARITY_LOSS_REL
         and err["max_grad_l2"] < PARITY_GRAD_L2 and err["max_fnet_grad_l2"] < PARITY_FNET_GRAD_L2
         and err["max_noise_bias_grad_rel_to_weight"] < PARITY_NOISE_BIAS
         and err["max_update_err_lr"] <= PARITY_UPDATE_MAX_LR
-        and err["share_updates_within_1e-2_lr"] >= PARITY_UPDATE_SHARE)
+        and err["share_updates_within_1e-2_lr"] >= share
+        and err.get("max_rel_err_running_stats_update", 0.0) < PARITY_STATS_UPDATE_REL)
 
 
 def phase_train_parity(dev):
-    """One semi step on the card (fp32, TF32 off) against the same step on the
-    CPU (plain versions), same weights and batches (``parity_setup``)."""
+    """One train step of each kind on the card (fp32, TF32 off) against the
+    same step on the CPU (plain versions), same weights and batches
+    (``step_parity_setup``)."""
     import torch
 
-    cfg, weights, sup, unsup = parity_setup()
-    ref = semi_step_outputs(cfg, weights, sup, unsup, torch.device("cpu"))
-    run = semi_step_outputs(cfg, weights, sup, unsup, dev)
-    err = parity_errors(run, ref, cfg.train.lr)
-    res = {"phase": "train_parity", "crop_hw": [64, 96], "full_hw": [96, 128],
-           "iters": PARITY_ITERS, "teacher_iters": PARITY_ITERS, "dtype": "float32",
-           "logs_cpu": ref[0], "logs_gpu": run[0], **err, "ok": parity_ok(err)}
-    emit(res)
-    if not res["ok"]:
-        raise AssertionError(f"train step card-vs-CPU parity failed: {res}")
+    from flow_supervisor_tpu_torch.training.loop import frozen_bn
+
+    for kind in STEP_RECIPES:
+        cfg, weights, batch = step_parity_setup(kind)
+        ref = step_outputs(cfg, weights, batch, torch.device("cpu"))
+        run = step_outputs(cfg, weights, batch, dev)
+        err = parity_errors(run, ref, cfg.train.lr, bn_train=not frozen_bn(cfg))
+        res = {"phase": "train_parity", "step": kind, "crop_hw": [64, 96],
+               "full_hw": None if kind == "baseline" else [96, 128], "iters": PARITY_ITERS,
+               "dtype": "float32", "logs_cpu": ref[0], "logs_gpu": run[0], **err,
+               "ok": parity_ok(err, kind)}
+        emit(res)
+        if not res["ok"]:
+            raise AssertionError(f"{kind} train step card-vs-CPU parity failed: {res}")
 
 
 def train_bwd_timing(model, batches, dev):
@@ -859,26 +1136,23 @@ def train_bwd_timing(model, batches, dev):
     return times
 
 
-def phase_train_main(dev):
-    """The Sintel recipe's semi step at full width and full shapes through
-    ``training.loop.train`` (the main path: launch counts over its steps),
-    then steps/s over timed steps, peak memory, device time per step, and
-    K8 / K9 timed against their plain versions."""
+def train_main(dev, kind: str, batches, **shapes):
+    """One recipe's step at full width through ``training.loop.train`` (the
+    main path: launch counts over its steps), then steps/s over timed steps,
+    peak memory, and device time, idle share and launches of one step.
+    Returns (launch counts, the model, the batches on the card, the result)."""
     import itertools
 
     import torch
 
     from flow_supervisor_tpu_torch.config import ExperimentConfig, ModelCfg, TrainCfg
     from flow_supervisor_tpu_torch.profile_forward import profile
-    from flow_supervisor_tpu_torch.training.loop import train
-    from flow_supervisor_tpu_torch.training.semi import make_semi_train_step
+    from flow_supervisor_tpu_torch.training.loop import make_step, train
 
-    gen = torch.Generator().manual_seed(7)
-    batches = [recipe_batches(TRAIN_SUP, TRAIN_UNSUP, TRAIN_FULL, gen, (16, 152), (32, 128)),
-               recipe_batches(TRAIN_SUP, TRAIN_UNSUP, TRAIN_FULL, gen, (24, 296), (56, 256))]
+    model_kw, train_kw = STEP_RECIPES[kind]
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = ExperimentConfig(ModelCfg(**RECIPE_MODEL, compute_dtype="bfloat16"),
-                               TrainCfg(**RECIPE_TRAIN, seed=7), ckpt_dir=tmp)
+        cfg = ExperimentConfig(ModelCfg(**model_kw, compute_dtype="bfloat16"),
+                               TrainCfg(**train_kw, seed=7), ckpt_dir=tmp)
         torch.cuda.synchronize()
         reset_launch_counts()
         model, state = train(cfg, itertools.cycle(batches), max_steps=TRAIN_STEPS_MAIN, device=dev)
@@ -887,20 +1161,19 @@ def phase_train_main(dev):
         with open(os.path.join(tmp, "metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f]
     want = {k: 0 for k in SOURCES}
-    want.update({k: TRAIN_STEPS_MAIN * v for k, v in TRAIN_LAUNCHES.items()})
+    want.update({k: TRAIN_STEPS_MAIN * v for k, v in STEP_LAUNCHES[kind].items()})
     if got != want:
-        raise AssertionError(f"train main path: launch counts {got} != expected {want}")
+        raise AssertionError(f"{kind} train main path: launch counts {got} != expected {want}")
     if len(rows) != TRAIN_STEPS_MAIN or not all(
             math.isfinite(v) for r in rows for v in r.values() if isinstance(v, float)):
-        raise AssertionError(f"train main path: bad metrics rows {rows}")
+        raise AssertionError(f"{kind} train main path: bad metrics rows {rows}")
 
-    step = make_semi_train_step(model, cfg.model, gamma=cfg.train.loss_decay_rate,
-                                sup_loss_type=cfg.train.loss_type)
-    dev_batches = [tuple({k: v.to(dev) for k, v in b.items()} for b in pair) for pair in batches]
+    step = make_step(model, cfg)
+    dev_batches = [to_device(b, dev) for b in batches]
     holder = {"state": state, "i": 0}
 
     def one():
-        holder["state"], log = step(holder["state"], *dev_batches[holder["i"] % 2])
+        holder["state"], log = step(holder["state"], dev_batches[holder["i"] % len(dev_batches)])
         holder["i"] += 1
         return log
 
@@ -916,24 +1189,55 @@ def phase_train_main(dev):
     peak = torch.cuda.max_memory_allocated()
     log = {k: float(v) for k, v in log.items()}
     if not all(math.isfinite(v) for v in log.values()):
-        raise AssertionError(f"train main path: non-finite log {log}")
+        raise AssertionError(f"{kind} train main path: non-finite log {log}")
     prof = profile(one, n=1)
-    times = train_bwd_timing(model, dev_batches[0], dev)
-    for name, t in times.items():
-        t["launches"] = got[name]
-    res = {"phase": "train_main", "ok": True, "recipe": "semi sintel (train.sh)", "batch": 1,
-           "sup_hw": list(TRAIN_SUP), "unsup_hw": list(TRAIN_UNSUP), "full_hw": list(TRAIN_FULL),
-           "iters": ITERS, "teacher_iters": ITERS, "dtype": "bfloat16",
-           "main_path_steps": TRAIN_STEPS_MAIN, "launches": got,
-           "launches_per_step": {k: v // TRAIN_STEPS_MAIN for k, v in got.items()},
+    res = {"phase": "train_main", "ok": True, "step": kind, "recipe": RECIPE_NAMES[kind],
+           **{k: list(v) if isinstance(v, tuple) else v for k, v in shapes.items()},
+           "iters": ITERS, "dtype": "bfloat16", "main_path_steps": TRAIN_STEPS_MAIN,
+           "launches": got, "launches_per_step": {k: v // TRAIN_STEPS_MAIN for k, v in got.items()},
            "metrics_rows": rows, "timed_steps": TRAIN_STEPS_TIMED, "step_ms": step_ms,
            "steps_per_s": 1000.0 / step_ms, "peak_mem_bytes": peak, "last_log": log,
            "device_ms_per_step": prof.get("device_ms_per_forward"),
            "device_idle_share": prof.get("device_idle_share"),
            "launches_per_step_all": prof.get("launches_per_forward"),
-           "by_category_ms_per_step": prof.get("by_category_ms_per_forward"),
-           "bwd_kernels": times}
+           "by_category_ms_per_step": prof.get("by_category_ms_per_forward")}
+    return got, model, dev_batches, res
+
+
+def phase_train_main(dev):
+    """Each recipe's step at full width and full shapes (``train_main``): the
+    Sintel semi step, whose K8 / K9 are then timed against their plain
+    versions (the kernels' home), the KITTI semi step with the teacher SMURF
+    loss, the Unsup step and the chairs Baseline step. Returns the Sintel
+    semi step's launch counts and K8 / K9 times."""
+    import torch
+
+    gen = torch.Generator().manual_seed(7)
+    batches = [recipe_batches(TRAIN_SUP, TRAIN_UNSUP, TRAIN_FULL, gen, (16, 152), (32, 128)),
+               recipe_batches(TRAIN_SUP, TRAIN_UNSUP, TRAIN_FULL, gen, (24, 296), (56, 256))]
+    got, model, dev_batches, res = train_main(
+        dev, "semi", batches, batch=1, sup_hw=TRAIN_SUP, unsup_hw=TRAIN_UNSUP, full_hw=TRAIN_FULL)
+    times = train_bwd_timing(model, dev_batches[0], dev)
+    for name, t in times.items():
+        t["launches"] = got[name]
+    res.update(teacher_iters=ITERS, bwd_kernels=times)
     emit(res)
+    del model, dev_batches
+    torch.cuda.empty_cache()
+
+    kitti = [recipe_batches(KITTI_SUP, KITTI_UNSUP, KITTI_FULL, gen, (8, 296), (40, 128)),
+             recipe_batches(KITTI_SUP, KITTI_UNSUP, KITTI_FULL, gen, (0, 600), (80, 600))]
+    unsup = [recipe_batches(TRAIN_SUP, TRAIN_UNSUP, TRAIN_FULL, gen, (0, 0), yx)[1]
+             for yx in ((32, 128), (64, 256))]
+    chairs = [labeled_batch(CHAIRS_BATCH, CHAIRS_HW, gen) for _ in range(2)]
+    for kind, bs, shapes in (
+        ("smurf", kitti, dict(batch=1, sup_hw=KITTI_SUP, unsup_hw=KITTI_UNSUP, full_hw=KITTI_FULL,
+                              teacher_iters=ITERS)),
+        ("unsup", unsup, dict(batch=1, crop_hw=TRAIN_UNSUP, full_hw=TRAIN_FULL)),
+        ("baseline", chairs, dict(batch=CHAIRS_BATCH, hw=CHAIRS_HW)),
+    ):
+        emit(train_main(dev, kind, bs, **shapes)[3])
+        torch.cuda.empty_cache()
     return got, times
 
 
@@ -962,6 +1266,7 @@ def main() -> int:
     errs = phase_kernels(dev)
     phase_parity(dev)
     launches, times = phase_main_path(dev)
+    launches[("own", 1)], times[("own", 1)] = phase_own_paths(dev)
     phase_requests(dev)
     phase_train_parity(dev)
     launches[("train", 1)], times[("train", 1)] = phase_train_main(dev)
@@ -970,9 +1275,14 @@ def main() -> int:
     for name, (src, rep) in SOURCES.items():
         home = HOME_CONFIG[name]
         t = times[home][name]
-        config = ({"lookup_backend": home[0], "batch": home[1]} if home[0] != "train" else
-                  {"train": "semi sintel recipe", "batch": 1, "steps": TRAIN_STEPS_MAIN,
-                   "launches_per_step": TRAIN_LAUNCHES[name]})
+        if home[0] == "train":
+            config = {"train": "semi sintel recipe", "batch": 1, "steps": TRAIN_STEPS_MAIN,
+                      "launches_per_step": TRAIN_LAUNCHES[name]}
+        elif home[0] == "own":
+            config = {"own_function": "conv3x3_fused" if name == "conv3x3_bare"
+                      else "corr_pyramid_lookup_pallas", "hw": list(MAIN_HW)}
+        else:
+            config = {"lookup_backend": home[0], "batch": home[1]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[home][name], "max_abs_err": errs[name],

@@ -1,9 +1,9 @@
 """Experiment configuration: the fields of the JAX package's ``ModelCfg`` and
 ``TrainCfg`` (flow_supervisor_tpu/config.py) that the port's training path
 reads, with the same names and defaults, as plain dataclasses. YAML
-persistence, the argument parser and the fields of unported paths (the
-unsupervised losses, the data pipeline and its image sizes, validation,
-parallelism, tracing) are not carried over."""
+persistence, the argument parser and the fields of unported paths (the data
+pipeline and its image sizes, validation, parallelism, tracing) are not
+carried over."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,6 +31,14 @@ class ModelCfg:
     # Reduction.NONE L_fr makes it (ModelCfg of the JAX package)
     lfr_sum_reduction: bool = True
     use_bw: bool = True
+    # unsupervised (SMURF) loss: the raft-unsup model's loss, and the teacher
+    # SMURF term of raft-semi (which sets selfsup to 0)
+    census_weight: float = 1.0
+    smooth1_weight: float = 2.5
+    smooth2_weight: float = 0.0
+    selfsup_weight: float = 0.3
+    occlusion: str = "wang"  # wang | brox | none
+    unsup_loss_decay_rate: float = 0.8
     # precision
     compute_dtype: str = "bfloat16"  # bfloat16 | float32
     corr_dtype: str = "float32"

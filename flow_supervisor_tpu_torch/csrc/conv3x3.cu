@@ -1,10 +1,15 @@
 // Direct 3x3 stride-1 SAME conv + bias over NHWC, with an instance-norm
-// statistics epilogue.
+// statistics epilogue (K2) or a relu epilogue (K5).
 //
 // Replaces flow_supervisor_tpu/kernels/conv3x3.py `_conv_stats_kernel` /
 // `_conv_body` (K2): y = conv(x, w) + b written in x's dtype, and per-(b, cout)
 // (mean, rsqrt(var + eps)) of the conv output for the instance norm that
 // follows (applied by norm.cu's apply kernel).
+//
+// And `_conv_kernel` (K5, behind `conv3x3_fused`): the same body without the
+// statistics, y = conv(x, w) + b, optionally relu'd in fp32 before the cast
+// to x's dtype (template flags STATS and RELU of one kernel). K5 is bound by
+// the same operations as K2 and gets the same design.
 //
 // Statistics are taken from the fp32 accumulator (bias included) BEFORE the
 // cast to x's dtype, as the TPU kernel does. The JAX package's CPU
@@ -36,9 +41,9 @@ constexpr int kInStride = kCK + 1;  // pad to avoid shared-memory bank conflicts
 constexpr int kInElems = 3 * (kTP + 2) * kInStride;
 constexpr int kWElems = 9 * kCK * kTC;
 
-template <typename T>
+template <typename T, bool STATS, bool RELU>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
+conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const T* __restrict__ bias, T* __restrict__ y,
                      float* __restrict__ partials, int H, int W, int C, int Cout,
                      int n_ct, int P) {
@@ -107,7 +112,8 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
     __syncthreads();
   }
 
-  // epilogue: bias, cast + store, per-channel partial statistics of the fp32 values
+  // epilogue: bias (+ relu), cast + store, per-channel partial statistics of
+  // the fp32 values
   float ps1[4] = {0.f, 0.f, 0.f, 0.f};
   float ps2[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -119,32 +125,34 @@ conv3x3_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = 0; i < 4; ++i) {
       const int ww = w0 + ty + 32 * i;
       if (ww >= W) continue;
-      const float v = acc[i][j] + bj;
+      const float v = RELU ? fmaxf(acc[i][j] + bj, 0.f) : acc[i][j] + bj;
       fst_store(y, (((long)b * H + h) * W + ww) * Cout + co, v);
       ps1[j] += v;
       ps2[j] += v * v;
     }
   }
-  // fixed-order reduction over the 32 pixel groups (s_in is free after the
-  // last __syncthreads of the main loop)
-  float* red1 = s_in;               // [32][kTC]
-  float* red2 = s_in + 32 * kTC;    // [32][kTC]
+  if constexpr (STATS) {
+    // fixed-order reduction over the 32 pixel groups (s_in is free after the
+    // last __syncthreads of the main loop)
+    float* red1 = s_in;               // [32][kTC]
+    float* red2 = s_in + 32 * kTC;    // [32][kTC]
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red1[ty * kTC + tx * 4 + j] = ps1[j];
-    red2[ty * kTC + tx * 4 + j] = ps2[j];
-  }
-  __syncthreads();
-  if (threadIdx.x < kTC && co0 + threadIdx.x < Cout) {
-    float t1 = 0.f, t2 = 0.f;
-    for (int g = 0; g < 32; ++g) {
-      t1 += red1[g * kTC + threadIdx.x];
-      t2 += red2[g * kTC + threadIdx.x];
+    for (int j = 0; j < 4; ++j) {
+      red1[ty * kTC + tx * 4 + j] = ps1[j];
+      red2[ty * kTC + tx * 4 + j] = ps2[j];
     }
-    const int p = h * gridDim.x + wt;
-    float* out = partials + ((long)b * P + p) * 2 * Cout;
-    out[co0 + threadIdx.x] = t1;
-    out[Cout + co0 + threadIdx.x] = t2;
+    __syncthreads();
+    if (threadIdx.x < kTC && co0 + threadIdx.x < Cout) {
+      float t1 = 0.f, t2 = 0.f;
+      for (int g = 0; g < 32; ++g) {
+        t1 += red1[g * kTC + threadIdx.x];
+        t2 += red2[g * kTC + threadIdx.x];
+      }
+      const int p = h * gridDim.x + wt;
+      float* out = partials + ((long)b * P + p) * 2 * Cout;
+      out[co0 + threadIdx.x] = t1;
+      out[Cout + co0 + threadIdx.x] = t2;
+    }
   }
 }
 
@@ -166,11 +174,11 @@ int fst_conv3x3_stats(const void* x, const void* w, const void* bias, void* y, v
   if (H > 65535 || (long)B * n_ct > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid(n_wt, H, B * n_ct);
   if (dtype == FST_F32) {
-    conv3x3_stats_kernel<float><<<grid, kThreads, 0, s>>>(
+    conv3x3_kernel<float, true, false><<<grid, kThreads, 0, s>>>(
         (const float*)x, (const float*)w, (const float*)bias, (float*)y, (float*)partials, H,
         W, C, Cout, n_ct, P);
   } else if (dtype == FST_BF16) {
-    conv3x3_stats_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+    conv3x3_kernel<__nv_bfloat16, true, false><<<grid, kThreads, 0, s>>>(
         (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const __nv_bfloat16*)bias,
         (__nv_bfloat16*)y, (float*)partials, H, W, C, Cout, n_ct, P);
   } else {
@@ -180,6 +188,28 @@ int fst_conv3x3_stats(const void* x, const void* w, const void* bias, void* y, v
   if (err != cudaSuccess) return (int)err;
   return (int)fst_stats_finalize((const float*)partials, (float*)stats, B, P, Cout,
                                  (long)H * W, eps, s);
+}
+
+// K5: y = conv(x, w) + b (relu'd when relu != 0), no statistics.
+int fst_conv3x3(const void* x, const void* w, const void* bias, void* y, int B, int H, int W,
+                int C, int Cout, int dtype, int relu, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n_wt = (W + kTP - 1) / kTP;
+  const int n_ct = (Cout + kTC - 1) / kTC;
+  if (H > 65535 || (long)B * n_ct > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(n_wt, H, B * n_ct);
+#define FST_CONV_LAUNCH(T, R)                                                             \
+  conv3x3_kernel<T, false, R><<<grid, kThreads, 0, s>>>(                                  \
+      (const T*)x, (const T*)w, (const T*)bias, (T*)y, nullptr, H, W, C, Cout, n_ct, 0)
+  if (dtype == FST_F32) {
+    if (relu) FST_CONV_LAUNCH(float, true); else FST_CONV_LAUNCH(float, false);
+  } else if (dtype == FST_BF16) {
+    if (relu) FST_CONV_LAUNCH(__nv_bfloat16, true); else FST_CONV_LAUNCH(__nv_bfloat16, false);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef FST_CONV_LAUNCH
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

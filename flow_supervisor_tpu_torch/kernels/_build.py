@@ -55,6 +55,11 @@ SIGNATURES = {
     "fst_corr_window": [_P, _I, _I, _P, _P, _I, _I, _I, _P],
     # x, w_hwio, bias, y, partials, stats, B, H, W, C, Cout, dtype, eps, stream
     "fst_conv3x3_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, w_hwio, bias, y, B, H, W, C, Cout, dtype, relu, stream
+    "fst_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # vol (level l, [BQ, h2, w2]), h2, w2, coords (level 0), level, out, out_stride, bq,
+    # radius, in_dtype, stream
+    "fst_corr_lookup_level": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P],
     # x, partials, stats, B, M, C, dtype, eps, stream
     "fst_instance_norm_stats": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     # x, stats, y, B, M, C, dtype, relu, stream

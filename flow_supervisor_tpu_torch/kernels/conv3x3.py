@@ -1,6 +1,7 @@
 """Direct 3x3 stride-1 SAME conv + bias with an instance-norm statistics
 epilogue: kernel K2, counterpart of flow_supervisor_tpu/kernels/conv3x3.py
-``conv3x3_stats`` / ``conv3x3_instnorm_relu``.
+``conv3x3_stats`` / ``conv3x3_instnorm_relu``; and the same conv alone with
+an optional relu: kernel K5, counterpart of ``conv3x3_fused``.
 
 ``conv3x3_stats(x, w, b)`` takes x [B, H, W, C] (NHWC), w [3, 3, C, Cout]
 (HWIO) and b [Cout], all in one dtype (fp32 or bf16), and returns
@@ -10,8 +11,17 @@ as the TPU kernel takes them (csrc/conv3x3.cu, replaces ``_conv_stats_kernel``).
 ``conv3x3_instnorm_relu`` finishes the pair with K4 (kernels/norm.py); it is
 a ``torch.autograd.Function`` whose backward is ``_cin_bwd``'s (below).
 
-The wrapper takes the plain PyTorch version only for CPU tensors; for CUDA
-tensors it launches the kernel or raises. ``launches`` counts kernel launches.
+``conv3x3_fused(x, w, b, relu=False)`` (K5, csrc/conv3x3.cu, replaces
+``_conv_kernel``): y = conv3x3(x, w) + b (+ relu) accumulated in fp32 and
+written in x's dtype; a ``torch.autograd.Function`` whose backward is the
+JAX package's ``_conv_bwd``: PyTorch's conv backward in x's dtype, the relu
+mask taken from the conv recomputed in x's dtype (not from the fp32 forward),
+the incoming cotangent cast to that dtype first. No model path of either
+package calls it; its own function is the only caller.
+
+Each wrapper takes the plain PyTorch version only for CPU tensors; for CUDA
+tensors it launches the kernel or raises. ``launches`` (K2) and
+``bare_launches`` (K5) count kernel launches.
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ from flow_supervisor_tpu_torch.kernels import _build
 from flow_supervisor_tpu_torch.kernels.norm import EPS, instance_norm_apply, norm_backward
 
 launches = 0
+bare_launches = 0
 
 
 def conv3x3_stats_plain(
@@ -41,20 +52,18 @@ def conv3x3_stats_plain(
     return y, stats
 
 
-def _check_args(x, w, b):
-    _build.check_nhwc(x, "conv3x3_stats")
+def _check_args(x, w, b, what="conv3x3_stats"):
+    _build.check_nhwc(x, what)
     c = x.shape[3]
     if w.dim() != 4 or w.shape[:3] != (3, 3, c) or not w.is_contiguous():
         raise ValueError(
-            f"conv3x3_stats: weight must be contiguous HWIO [3, 3, {c}, Cout], got "
-            f"{tuple(w.shape)}"
+            f"{what}: weight must be contiguous HWIO [3, 3, {c}, Cout], got {tuple(w.shape)}"
         )
     if b.shape != (w.shape[3],) or not b.is_contiguous():
-        raise ValueError(f"conv3x3_stats: bias must be [{w.shape[3]}], got {tuple(b.shape)}")
+        raise ValueError(f"{what}: bias must be [{w.shape[3]}], got {tuple(b.shape)}")
     if w.dtype != x.dtype or b.dtype != x.dtype:
         raise TypeError(
-            f"conv3x3_stats: x, weight and bias must share a dtype, got "
-            f"{x.dtype}, {w.dtype}, {b.dtype}"
+            f"{what}: x, weight and bias must share a dtype, got {x.dtype}, {w.dtype}, {b.dtype}"
         )
 
 
@@ -119,3 +128,73 @@ def conv3x3_instnorm_relu(
     """conv3x3 (+bias) -> affine-free instance norm -> (relu), NHWC: K2 then
     K4, differentiable."""
     return _Conv3x3InstNormRelu.apply(x, w, b, relu)
+
+
+def conv3x3_bare_plain(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = False
+) -> torch.Tensor:
+    """fp32 conv + bias (+ relu), cast to x's dtype."""
+    y32 = F.conv2d(
+        x.permute(0, 3, 1, 2).float(), w.permute(3, 2, 0, 1).float(), b.float(), padding=1
+    )
+    if relu:
+        y32 = torch.relu(y32)
+    return y32.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+def conv3x3_bare(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = False
+) -> torch.Tensor:
+    """K5: conv3x3(x, w) + b (+ relu) in x's dtype, NHWC / HWIO."""
+    global bare_launches
+    _check_args(x, w, b, "conv3x3_fused")
+    if not _build.uses_kernel("conv3x3_fused", x, w, b):
+        return conv3x3_bare_plain(x, w, b, relu)
+    bsz, h, wd, c = x.shape
+    cout = w.shape[3]
+    y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _build.lib().fst_conv3x3(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h, wd, c, cout,
+            _build.dtype_code(x), int(relu), _build.stream_of(x),
+        )
+    _build.check(rc, "conv3x3_fused")
+    bare_launches += 1
+    return y
+
+
+class _Conv3x3Fused(torch.autograd.Function):
+    """Forward K5; backward ``_conv_bwd`` of the JAX package."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, relu):
+        ctx.relu = relu
+        ctx.save_for_backward(x, w, b)
+        return conv3x3_bare(x, w, b, relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b = ctx.saved_tensors
+        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        dy = g.to(x.dtype).permute(0, 3, 1, 2)
+        if ctx.relu:
+            # the dtype-uniform conv's relu; jnp.maximum splits a tie at 0 in halves
+            y = F.conv2d(xn, wn, padding=1) + b.view(1, -1, 1, 1)
+            dy = dy * ((y > 0).to(dy.dtype) + 0.5 * (y == 0).to(dy.dtype))
+        dx, dw, db = torch.ops.aten.convolution_backward(
+            dy, xn, wn, [w.shape[3]], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            list(ctx.needs_input_grad[:3]),
+        )
+        return (
+            None if dx is None else dx.permute(0, 2, 3, 1),
+            None if dw is None else dw.permute(2, 3, 1, 0),
+            db, None,
+        )
+
+
+def conv3x3_fused(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = False
+) -> torch.Tensor:
+    """3x3 stride-1 SAME conv (+ bias, optional relu), NHWC x [B, H, W, C],
+    HWIO w [3, 3, C, Cout], fp32 or bf16: K5 forward, differentiable."""
+    return _Conv3x3Fused.apply(x, w, b, relu)

@@ -9,8 +9,8 @@ the JAX package:
 - update convs: kernel and bias ~ U(+-1/sqrt(fan_in)), fan_in = c_in * kh * kw.
 
 Norms: ``instance`` is the affine-free instance norm (eps 1e-5, fp32
-statistics) of kernels/norm.py, differentiable; ``batch`` is
-``nn.BatchNorm2d`` (eps 1e-5, flax momentum 0.99 = torch 0.01; running
+statistics) of kernels/norm.py, differentiable; ``batch`` is flax's
+BatchNorm (``BatchNorm2d`` below: eps 1e-5, momentum 0.99; running
 statistics in eval mode, and in training too when the model freezes its
 batch norm): with fp32 parameters (training's masters) and a bf16 input it
 computes in fp32 and returns bf16, as flax's BatchNorm (param_dtype fp32)
@@ -28,6 +28,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from flow_supervisor_tpu_torch.kernels.norm import instance_norm
@@ -101,12 +102,35 @@ class InstanceNorm(nn.Module):
         return nchw(instance_norm(nhwc(x), relu=self.relu))
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax's BatchNorm (momentum 0.99). In training mode it normalizes by the
+    batch's mean and biased variance and moves the running statistics toward
+    them: running = 0.99 running + 0.01 batch, with the BIASED variance,
+    where ``nn.BatchNorm2d`` moves running_var toward the unbiased one (a
+    factor n / (n - 1) apart). In eval mode it is ``nn.BatchNorm2d``'s."""
+
+    MOMENTUM = 0.99
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=1.0 - self.MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+            m = self.MOMENTUM
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 def make_norm(kind: str, channels: int) -> nn.Module:
     """The reference's norm_fn choices for the slice: instance / batch / none."""
     if kind == "instance":
         return InstanceNorm()
     if kind == "batch":
-        return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.01)
+        return BatchNorm2d(channels)
     if kind == "none":
         return nn.Identity()
     raise ValueError(f"norm_fn {kind} not implemented in the port")

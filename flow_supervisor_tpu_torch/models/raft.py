@@ -33,7 +33,10 @@ Training (the flow supervisor, counterpart of ``semi_forward``): with
 from the student's final state zero-padded into the full frame, over a
 pyramid, context and state that carry no gradient (computed under
 ``torch.no_grad``, where JAX has ``stop_gradient``). ``freeze_bn`` keeps
-cnet's batch norm on its running statistics in training mode too.
+cnet's batch norm on its running statistics in training mode too; without
+it, training mode normalizes by batch statistics and updates the running
+ones, as flax does (models/layers.py ``BatchNorm2d``). ``train_forward``
+(Baseline) and ``unsup_forward`` (Unsup) are the forwards with gradient.
 """
 from __future__ import annotations
 
@@ -238,7 +241,26 @@ class RAFT(nn.Module):
         final_flow_only: bool = False,
     ) -> dict[str, torch.Tensor]:
         """image1/2: [B, H, W, 3] in [0, 1]; flow_init: [B, h, w, 2] (resized to
-        1/8). Returns {"flow_up": [n, B, H, W, 2], "flow_low": [iters, B, h8, w8, 2]}."""
+        1/8). Returns {"flow_up": [n, B, H, W, 2], "flow_low": [iters, B, h8, w8, 2]}.
+        Inference: no gradient (``train_forward`` is the same forward with one)."""
+        return self._flow(image1, image2, flow_init, iters, final_flow_only)
+
+    def train_forward(self, image1: torch.Tensor, image2: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The standard forward with gradient, every iteration upsampled (the
+        Baseline step's forward; JAX's ``__call__(train=True)``)."""
+        self._check_trainable()
+        return self._flow(image1, image2)
+
+    def _check_trainable(self) -> None:
+        """Training runs only through the fused lookup, the one with a backward."""
+        if torch.is_grad_enabled() and self.cfg.lookup_backend != "fused":
+            raise NotImplementedError(
+                f"training through lookup_backend={self.cfg.lookup_backend!r}: only the fused "
+                "lookup has a backward (K8/K9); the plane and pallas kernels' backward "
+                "passes are not ported yet (ROADMAP Queue 2)"
+            )
+
+    def _flow(self, image1, image2, flow_init=None, iters=None, final_flow_only=False):
         iters = self.cfg.iters if iters is None else iters
         b, h, w, _ = image1.shape
         fmap1, fmap2 = self.features(image1, image2)
@@ -309,12 +331,7 @@ class RAFT(nn.Module):
         target."""
         if not self.cfg.teacher:
             raise ValueError("semi_forward needs RAFTConfig(teacher=True)")
-        if torch.is_grad_enabled() and self.cfg.lookup_backend != "fused":
-            raise NotImplementedError(
-                f"training through lookup_backend={self.cfg.lookup_backend!r}: only the fused "
-                "lookup has a backward (K8/K9); the plane and pallas kernels' backward "
-                "passes are not ported yet (ROADMAP Queue 2)"
-            )
+        self._check_trainable()
         fmap1, fmap2 = self.features(image1, image2)
         pyramid = self.build_corr(fmap1, fmap2)
         with torch.no_grad():
@@ -337,3 +354,26 @@ class RAFT(nn.Module):
             out.update(student_bw=stu_bw, student_low_bw=stu_low_bw,
                        teacher_bw=tea_bw, teacher_low_bw=tea_low_bw)
         return out
+
+    # ---- unsupervised forward (counterpart of RAFT.unsup_forward) ----------
+
+    def unsup_forward(self, image1, image2,
+                      final_flow_only: bool = False) -> dict[str, torch.Tensor]:
+        """Both directions of the standard forward, with gradient: flow_up /
+        flow_low, and flow_up_bw / flow_low_bw from the backward pyramid (the
+        fmap arguments swapped) and image2's context. ``final_flow_only``:
+        upsample only the last iteration (for callers that read only it)."""
+        self._check_trainable()
+        b, h, w, _ = image1.shape
+        h8, w8 = downsample_shape(h), downsample_shape(w)
+        fmap1, fmap2 = self.features(image1, image2)
+        pyramid = self.build_corr(fmap1, fmap2)
+        net, inp = self.context(image1)
+        coords0 = coords_grid(b, h8, w8, device=image1.device)
+        _, _, fw_up, fw_low = self.iterate(
+            net, inp, pyramid, coords0, coords0, (h, w), self.cfg.iters, final_flow_only)
+        bw_pyramid = self.build_corr(fmap2, fmap1)
+        net2, inp2 = self.context(image2)
+        _, _, bw_up, bw_low = self.iterate(
+            net2, inp2, bw_pyramid, coords0, coords0, (h, w), self.cfg.iters, final_flow_only)
+        return {"flow_up": fw_up, "flow_low": fw_low, "flow_up_bw": bw_up, "flow_low_bw": bw_low}

@@ -11,11 +11,16 @@ flow_supervisor_tpu/ops/pad.py).
   ``lax.dynamic_slice`` / ``dynamic_update_slice`` clamp them, so the window
   always lies inside the frame. Both are gathers / scatters on the offsets'
   device: no host synchronisation, differentiable.
+- ``central_pad`` / ``central_crop``: zero-pad to, or crop to, a size
+  centred in the frame.
+- ``create_outgoing_mask``: 1 where grid + flow stays inside the image.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from flow_supervisor_tpu_torch.ops.coords import coords_grid
 
 
 def pad_spec_for(ht: int, wd: int, mode: str = "sintel", multiple: int = 8):
@@ -70,3 +75,31 @@ def pad_bboxes(images: torch.Tensor, offsets: torch.Tensor, target_size: tuple[i
     canvas = images.new_zeros((b, *target_size, c))
     idx = _window_index(offsets, (ih, iw), target_size, images.device)
     return canvas.index_put(idx, images)
+
+
+def central_pad(images: torch.Tensor, target_size: tuple[int, int]) -> torch.Tensor:
+    """Zero-pad NHWC to target_size, centred (the odd pixel after)."""
+    h, w = target_size
+    ih, iw = images.shape[1], images.shape[2]
+    y, x = (h - ih) // 2, (w - iw) // 2
+    return F.pad(images, (0, 0, x, w - x - iw, y, h - y - ih))
+
+
+def central_crop(images: torch.Tensor, target_size: tuple[int, int]) -> torch.Tensor:
+    h, w = target_size
+    ih, iw = images.shape[1], images.shape[2]
+    y, x = (ih - h) // 2, (iw - w) // 2
+    return images[:, y : y + h, x : x + w]
+
+
+def create_outgoing_mask(flow: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, 1] mask, 1 where grid + flow stays inside the image."""
+    h, w = flow.shape[-3], flow.shape[-2]
+    pos = coords_grid(1, h, w, device=flow.device, dtype=flow.dtype)[0] + flow
+    inside = (
+        (pos[..., 0] >= 0.0)
+        & (pos[..., 0] <= w - 1.0)
+        & (pos[..., 1] >= 0.0)
+        & (pos[..., 1] <= h - 1.0)
+    )
+    return inside.to(flow.dtype)[..., None]

@@ -9,14 +9,18 @@ flow_supervisor_tpu/training/semi.py ``make_semi_train_step``).
   teacher's final prediction without gradient (lfr_loss_type, gamma =
   loss_decay_rate, x lfr_weight); with ``lfr_sum_reduction`` the branch's
   loss is multiplied by B*H*W of the student crop (the reference's pixel-sum
-  gradient). The teacher runs without gradient there: only its final
-  prediction is used, as a target.
+  gradient). Without the teacher SMURF loss the teacher runs without
+  gradient there: only its final prediction is used, as a target.
+- teacher SMURF (``teacher_smurf_weight > 0``): the unsupervised loss
+  (census, smoothness, occlusion; self-supervision forced to 0, as the
+  reference does) over every teacher iteration of both directions, with
+  gradient into the teacher head, against the unaugmented crops cut from the
+  originals and with the full-size warping branch; added to the unsup
+  branch's loss x teacher_smurf_weight (and x B*H*W with
+  ``lfr_sum_reduction``, like every term of that branch).
 - Each branch has its own backward pass; the gradients merge per variable,
   g = sup_weight * g_sup + unsup_weight * g_unsup, a variable that a branch
   does not reach counting zero from it.
-
-The teacher SMURF loss (``teacher_smurf_weight > 0``: census, smoothness,
-occlusion) is not ported yet and raises.
 
 Batch contract (tensors on the model's device):
   sup:   {'image1','image2','orig_image1','orig_image2','crop_yx','flow','valid'}
@@ -31,8 +35,13 @@ from typing import Any
 import torch
 
 from flow_supervisor_tpu_torch.losses.supervised import sequence_loss
+from flow_supervisor_tpu_torch.losses.unsupervised import (
+    UnsupLossConfig,
+    unsupervised_sequence_loss,
+)
 from flow_supervisor_tpu_torch.metrics import epe_per_image
-from flow_supervisor_tpu_torch.training.state import TrainState
+from flow_supervisor_tpu_torch.training.state import TrainState, grads_of
+from flow_supervisor_tpu_torch.training.unsup import smurf_images
 
 
 def make_semi_train_step(
@@ -40,23 +49,17 @@ def make_semi_train_step(
     model_cfg,  # ModelCfg: weights, decay rates, loss types
     gamma: float = 0.8,  # loss_decay_rate (TrainCfg)
     sup_loss_type: str = "robust",
-    debug_grads: bool = False,  # put the merged gradients in the log
+    debug_grads: bool = False,  # put the merged gradients in the log as "_grads"
 ):
     mc = model_cfg
     if not model.cfg.freeze_bn:
         raise ValueError("semi training requires RAFTConfig(freeze_bn=True) (reference parity)")
-    if mc.teacher_smurf_weight > 0.0:
-        raise NotImplementedError(
-            "teacher_smurf_weight > 0: the unsupervised losses (census, smoothness, "
-            "occlusion) are not ported yet (ROADMAP Queue 1, item 8)"
-        )
-    if mc.lfr_weight > 0.0 and not mc.use_bw:
-        raise ValueError("L_fr reads both directions: it needs use_bw=True")
+    if (mc.lfr_weight > 0.0 or mc.teacher_smurf_weight > 0.0) and not mc.use_bw:
+        raise ValueError("L_fr and the teacher SMURF loss read both directions: use_bw=True")
+    smurf = mc.teacher_smurf_weight > 0.0
+    # the teacher SMURF loss never takes the self-supervision term
+    unsup_cfg = UnsupLossConfig.from_model_cfg(mc, selfsup=0.0)
     named = list(model.named_parameters())
-
-    def grads_of(loss: torch.Tensor) -> dict[str, torch.Tensor]:
-        gs = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
-        return {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(named, gs)}
 
     def semi(batch, **kw):
         return model.semi_forward(
@@ -82,9 +85,17 @@ def make_semi_train_step(
         return total, log, out["student_fw"][-1]
 
     def unsup_loss_fn(batch):
-        out = semi(batch, use_bw=mc.use_bw, teacher_final_only=True, teacher_grad=False)
+        out = semi(batch, use_bw=mc.use_bw, teacher_final_only=not smurf, teacher_grad=smurf)
         log = {}
         total = torch.zeros((), dtype=torch.float32, device=batch["image1"].device)
+        if smurf:
+            images, full = smurf_images(batch)
+            smurf_total, _ = unsupervised_sequence_loss(
+                images, out["teacher_fw"], out["teacher_bw"], unsup_cfg,
+                full_size_images=full, crop_yx=batch["crop_yx"],
+            )
+            log["teacher_smurf_loss"] = smurf_total
+            total = total + smurf_total * mc.teacher_smurf_weight
         if mc.lfr_weight > 0.0:
             lfr = sequence_loss(
                 out["student_fw"], out["teacher_fw"][-1].detach(), None, gamma=gamma,
@@ -107,7 +118,7 @@ def make_semi_train_step(
         log, grads = {}, None
         if mc.sup_weight > 0.0:
             loss, sup_log, final_pred = sup_loss_fn(sup_batch)
-            g_sup = grads_of(loss)
+            g_sup = grads_of(loss, named)
             log.update({k: v.detach() for k, v in sup_log.items()})
             log["epe"] = torch.mean(
                 epe_per_image(final_pred.detach(), sup_batch["flow"], sup_batch["valid"])
@@ -115,7 +126,7 @@ def make_semi_train_step(
             grads = {k: mc.sup_weight * g for k, g in g_sup.items()}
         if mc.unsup_weight > 0.0:
             loss, unsup_log = unsup_loss_fn(unsup_batch)
-            g_unsup = grads_of(loss) if loss.requires_grad else {
+            g_unsup = grads_of(loss, named) if loss.requires_grad else {
                 n: torch.zeros_like(p) for n, p in named}
             log.update({k: v.detach() for k, v in unsup_log.items()})
             if grads is None:
@@ -123,7 +134,7 @@ def make_semi_train_step(
             else:
                 grads = {k: grads[k] + mc.unsup_weight * g for k, g in g_unsup.items()}
         if debug_grads:
-            log["_merged_grads"] = grads
+            log["_grads"] = grads
         return state.apply_gradients(grads), log
 
     return train_step

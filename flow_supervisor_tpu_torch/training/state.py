@@ -32,3 +32,10 @@ class TrainState:
             self.params[k].add_(u)
         self.step += 1
         return self
+
+
+def grads_of(loss: torch.Tensor, named) -> dict[str, torch.Tensor]:
+    """d loss / d each of the (name, parameter) pairs ``named``; zeros for a
+    parameter the loss does not reach (JAX's zero for an unused input)."""
+    gs = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    return {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(named, gs)}

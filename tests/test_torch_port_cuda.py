@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from flow_supervisor_tpu_torch.kernels import conv3x3, corr_fused, corr_lookup_v2, corr_plane, norm
-from flow_supervisor_tpu_torch.ops.corr import window_support
+from flow_supervisor_tpu_torch.kernels import (
+    conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm,
+)
+from flow_supervisor_tpu_torch.ops.corr import build_corr_pyramid_from_fmaps, window_support
 
 R = 4
 
@@ -174,3 +176,61 @@ def test_cuda_k10_matches_plain(cuda, dtype):
         got = corr_lookup_v2.level_support(plane, cl, R)
         # a copy of plane values (bf16 -> fp32 is exact): equal
         torch.testing.assert_close(got, window_support(plane, cl, R), atol=0, rtol=0)
+
+
+# K5: a width that is not a multiple of the 128-pixel tile, Cout not a
+# multiple of the 32-channel tile; fp32: summation order of 9*C terms only
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape", [(2, 20, 40, 64, 64), (1, 11, 90, 128, 72)])
+def test_cuda_k5_matches_plain(cuda, dtype, relu, shape):
+    b, h, w, c, co = shape
+    g = torch.Generator().manual_seed(17)
+    x = torch.randn(b, h, w, c, generator=g).to(cuda, dtype)
+    k = (0.1 * torch.randn(3, 3, c, co, generator=g)).to(cuda, dtype)
+    bias = (0.1 * torch.randn(co, generator=g)).to(cuda, dtype)
+    n = conv3x3.bare_launches
+    y = conv3x3.conv3x3_fused(x, k, bias, relu)
+    assert conv3x3.bare_launches == n + 1 and y.dtype == dtype
+    y_ref = conv3x3.conv3x3_bare_plain(x, k, bias, relu)
+    rtol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=rtol, atol=1e-4)
+    if relu:
+        assert float(y.min()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_k5_backward_matches_the_cpu(cuda):
+    """The VJP (PyTorch's conv backward, relu mask from the recomputed conv)
+    on the card against the same on the CPU, fp32."""
+    g = torch.Generator().manual_seed(18)
+    x, k, bias, gy = (torch.randn(*s, generator=g) for s in
+                      ((1, 12, 20, 32), (3, 3, 32, 48), (48,), (1, 12, 20, 48)))
+    grads = []
+    for dev in (torch.device("cpu"), cuda):
+        args = [t.to(dev).requires_grad_() for t in (x, 0.1 * k, 0.1 * bias)]
+        y = conv3x3.conv3x3_fused(*args, relu=True)
+        grads.append(torch.autograd.grad(y, args, gy.to(dev)))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+
+
+# K11: a copy of the volume's values into the same bilinear formula, fp32
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k11_matches_plain(cuda, dtype):
+    f1, f2, coords = _lookup_inputs(b=2, h8=5, w8=9, c=64, seed=19)
+    pyr = build_corr_pyramid_from_fmaps(
+        torch.from_numpy(f1).to(cuda), torch.from_numpy(f2).to(cuda), 4, dtype)
+    c = torch.from_numpy(coords).to(cuda)
+    c[0, 0, :3] = torch.tensor([[-3e38, 3e38], [1e9, 2.0], [3.5, -4e6]])
+    n = corr_lookup.launches
+    got = corr_lookup.corr_pyramid_lookup_pallas(pyr, c, R)
+    assert corr_lookup.launches == n + 4 and got.dtype == torch.float32
+    want = torch.cat([corr_lookup.lookup_level_plain(v, c / 2.0 ** i, R)
+                      for i, v in enumerate(pyr)], -1)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.all(got[0, 0, :3] == 0)
+    one = corr_lookup.lookup_level_pallas(pyr[1], (c / 2).contiguous(), R)
+    torch.testing.assert_close(one, got[..., 81:162], atol=0, rtol=0)

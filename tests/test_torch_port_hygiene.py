@@ -16,10 +16,12 @@ import sys, json
 import torch
 from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
 from flow_supervisor_tpu_torch.kernels import (
-    _build, conv3x3, corr_fused, corr_lookup_v2, corr_plane, norm)
+    _build, conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm)
 import flow_supervisor_tpu_torch.evaluation, flow_supervisor_tpu_torch.extract_flow
 import flow_supervisor_tpu_torch.profile_forward, flow_supervisor_tpu_torch.config
 import flow_supervisor_tpu_torch.training.loop, flow_supervisor_tpu_torch.training.semi
+import flow_supervisor_tpu_torch.training.unsup, flow_supervisor_tpu_torch.training.baseline
+import flow_supervisor_tpu_torch.losses.unsupervised, flow_supervisor_tpu_torch.ops.warp
 g = torch.Generator().manual_seed(0)
 model = RAFT(RAFTConfig(iters=2, lookup_backend=BACKEND), generator=g)
 img = torch.rand(BATCH, 32, 48, 3, generator=g)
@@ -33,18 +35,21 @@ print(json.dumps({
 }))
 """
 _LAUNCHES = """[corr_plane.launches, conv3x3.launches, norm.stats_launches,
-    norm.apply_launches, corr_fused.all_launches, corr_fused.level_launches,
-    corr_lookup_v2.launches, corr_fused.bwd_df1_launches, corr_fused.bwd_df2_launches]"""
+    norm.apply_launches, conv3x3.bare_launches, corr_fused.all_launches,
+    corr_fused.level_launches, corr_fused.bwd_df1_launches, corr_fused.bwd_df2_launches,
+    corr_lookup_v2.launches, corr_lookup.launches]"""
+N_KERNELS = 11
 _LEAKED = """sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "flax", "flow_supervisor_tpu", "cv2", "optax", "orbax", "yaml"))"""
 _CPU_FORWARD = _CPU_FORWARD.replace("LAUNCHES", _LAUNCHES).replace("LEAKED", _LEAKED)
 
-_CPU_SEMI_STEP = """
+_CPU_STEP = """
 import sys, json
 import numpy as np
 import torch
 from flow_supervisor_tpu_torch.config import ExperimentConfig, ModelCfg, TrainCfg
-from flow_supervisor_tpu_torch.kernels import _build, conv3x3, corr_fused, corr_lookup_v2, corr_plane, norm
+from flow_supervisor_tpu_torch.kernels import (
+    _build, conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm)
 from flow_supervisor_tpu_torch.training.loop import train
 rng = np.random.default_rng(0)
 img = lambda s: rng.uniform(0, 1, s).astype(np.float32)
@@ -53,11 +58,13 @@ sup = {"image1": img((1, 32, 48, 3)), "image2": img((1, 32, 48, 3)),
        "crop_yx": np.asarray([[8, 16]]), "flow": img((1, 32, 48, 2)),
        "valid": np.ones((1, 32, 48, 1), np.float32)}
 unsup = {k: v for k, v in sup.items() if k not in ("flow", "valid")}
+labeled = {k: np.concatenate([v, v]) for k, v in sup.items() if k in ("image1", "image2", "flow", "valid")}
+batch = {"raft-semi": (sup, unsup), "raft-unsup": unsup, "raft-baseline": labeled}[MODEL_TYPE]
 cfg = ExperimentConfig(
-    ModelCfg(model_type="raft-semi", iters=1, teacher_iters=1, compute_dtype="float32",
-             lookup_backend="fused"),
-    TrainCfg(stage="semi", log_every=1), ckpt_dir=CKPT)
-model, state = train(cfg, iter([(sup, unsup)]), max_steps=1, device="cpu")
+    ModelCfg(model_type=MODEL_TYPE, iters=1, teacher_iters=1, compute_dtype="float32",
+             lookup_backend="fused", **MODEL_KW),
+    TrainCfg(stage=STAGE, log_every=1), ckpt_dir=CKPT)
+model, state = train(cfg, iter([batch]), max_steps=1, device="cpu")
 rows = [json.loads(l) for l in open(CKPT + "/metrics.jsonl")]
 print(json.dumps({
     "step": state.step, "row": rows[-1],
@@ -66,6 +73,16 @@ print(json.dumps({
     "leaked": LEAKED,
 }))
 """.replace("LAUNCHES", _LAUNCHES).replace("LEAKED", _LEAKED)
+# model type -> (stage, extra ModelCfg fields, the log's keys)
+_STEPS = {
+    "raft-semi": ("semi", {}, ["sup_label_loss", "lfl_loss", "sup_loss", "epe", "lfr_loss",
+                               "unsup_loss"]),
+    "raft-unsup": ("sintel_unsup", {}, ["loss", "census", "smooth1", "selfsup"]),
+    "raft-baseline": ("chairs", {}, ["loss", "epe"]),
+    "raft-semi-smurf": ("semi", {"teacher_smurf_weight": 1.0, "occlusion": "brox"},
+                        ["sup_label_loss", "lfl_loss", "sup_loss", "epe", "teacher_smurf_loss",
+                         "lfr_loss", "unsup_loss"]),
+}
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -89,7 +106,7 @@ def test_cpu_forward_imports_no_jax_and_launches_nothing():
     res = _cpu_forward("plane", 1)
     assert res["leaked"] == []
     assert res["finite"] and res["shape"] == [1, 1, 32, 48, 2]
-    assert res["launches"] == [0] * 9
+    assert res["launches"] == [0] * N_KERNELS
     assert not res["lib_loaded"]
 
 
@@ -100,26 +117,42 @@ def test_cpu_forward_per_lookup_backend_launches_nothing(backend, batch):
     res = _cpu_forward(backend, batch)
     assert res["leaked"] == []
     assert res["finite"] and res["shape"] == [1, batch, 32, 48, 2]
-    assert res["launches"] == [0] * 9
+    assert res["launches"] == [0] * N_KERNELS
     assert not res["lib_loaded"]
 
 
-def test_cpu_semi_train_step_imports_no_jax_and_launches_nothing(tmp_path):
+def _cpu_train_step(model_type: str, tmp_path) -> None:
     """One step of ``training.loop.train`` on the CPU (the fused lookup and its
     backward as plain PyTorch): finite logs in metrics.jsonl, no kernel
     launched or built, nothing of JAX, flax or yaml imported."""
     import json
 
-    proc = _run(_CPU_SEMI_STEP.replace("CKPT", repr(str(tmp_path))))
+    stage, extra, keys = _STEPS[model_type]
+    code = (_CPU_STEP.replace("CKPT", repr(str(tmp_path)))
+            .replace("MODEL_TYPE", repr(model_type.replace("-smurf", "")))
+            .replace("MODEL_KW", repr(extra)).replace("STAGE", repr(stage)))
+    proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["leaked"] == []
     assert res["step"] == 1
-    for k in ("sup_label_loss", "lfl_loss", "sup_loss", "epe", "lfr_loss", "unsup_loss",
-              "steps_per_sec"):
+    assert sorted(res["row"]) == sorted(keys + ["steps_per_sec", "step", "prefix"])
+    for k in keys + ["steps_per_sec"]:
         assert isinstance(res["row"][k], float) and res["row"][k] == res["row"][k], k
-    assert res["launches"] == [0] * 9
+    assert res["launches"] == [0] * N_KERNELS
     assert not res["lib_loaded"]
+
+
+def test_cpu_semi_train_step_imports_no_jax_and_launches_nothing(tmp_path):
+    _cpu_train_step("raft-semi", tmp_path)
+
+
+@pytest.mark.parametrize("model_type", ["raft-unsup", "raft-baseline", "raft-semi-smurf"])
+def test_cpu_unsup_baseline_and_smurf_steps_import_no_jax_and_launch_nothing(model_type, tmp_path):
+    """The Unsup step (frozen batch norm), the Baseline step (chairs: unfrozen
+    batch norm, B=2) and the semi step with the teacher SMURF loss, each one
+    step through ``training.loop.train`` on the CPU."""
+    _cpu_train_step(model_type, tmp_path)
 
 
 def test_no_source_file_imports_jax():

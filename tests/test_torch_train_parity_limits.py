@@ -18,14 +18,14 @@ CPU = torch.device("cpu")
 
 @pytest.fixture(scope="module")
 def parity():
-    cfg, weights, sup, unsup = chip_smoke.parity_setup()
-    ref = chip_smoke.semi_step_outputs(cfg, weights, sup, unsup, CPU)
-    return cfg, weights, sup, unsup, ref
+    cfg, weights, batch = chip_smoke.step_parity_setup("semi")
+    ref = chip_smoke.step_outputs(cfg, weights, batch, CPU)
+    return cfg, weights, batch, ref
 
 
 @pytest.mark.parametrize("seed", range(4))
 def test_limits_pass_rounding_scale_weight_perturbations(parity, seed):
-    cfg, weights, sup, unsup, ref = parity
+    cfg, weights, batch, ref = parity
     gen = torch.Generator().manual_seed(seed)
     perturbed = {
         k: v * (1 + 2.0**-24 * torch.randn(v.shape, generator=gen))
@@ -33,14 +33,14 @@ def test_limits_pass_rounding_scale_weight_perturbations(parity, seed):
         for k, v in weights.items()
     }
     err = chip_smoke.parity_errors(
-        chip_smoke.semi_step_outputs(cfg, perturbed, sup, unsup, CPU), ref, cfg.train.lr)
+        chip_smoke.step_outputs(cfg, perturbed, batch, CPU), ref, cfg.train.lr)
     print(json.dumps({"perturbation_seed": seed, **err}))
     assert chip_smoke.parity_ok(err), err
 
 
 @pytest.mark.parametrize("kernel", ["bwd_df1", "bwd_df2"])
 def test_limits_fail_a_backward_that_drops_one_query(parity, kernel, monkeypatch):
-    cfg, weights, sup, unsup, ref = parity
+    cfg, weights, batch, ref = parity
     wrapper = getattr(corr_fused, kernel)
 
     def dropping(f1, f2s, coords, g, radius=4):
@@ -50,7 +50,7 @@ def test_limits_fail_a_backward_that_drops_one_query(parity, kernel, monkeypatch
 
     monkeypatch.setattr(corr_fused, kernel, dropping)
     err = chip_smoke.parity_errors(
-        chip_smoke.semi_step_outputs(cfg, weights, sup, unsup, CPU), ref, cfg.train.lr)
+        chip_smoke.step_outputs(cfg, weights, batch, CPU), ref, cfg.train.lr)
     print(json.dumps({"fault": f"{kernel} drops the last query", **err}))
     assert err["max_fnet_grad_l2"] > chip_smoke.PARITY_FNET_GRAD_L2, err
     assert not chip_smoke.parity_ok(err)

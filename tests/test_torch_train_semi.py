@@ -108,7 +108,7 @@ def steps():
                                 debug_grads=True)
     to_t = lambda b: {k: torch.from_numpy(v) for k, v in b.items()}  # noqa: E731
     state, log = step(state, to_t(sup), to_t(unsup))
-    grads = log.pop("_merged_grads")
+    grads = log.pop("_grads")
     return {"jlog": jlog, "jgrads": jgrads, "jparams": jparams, "log": log, "grads": grads,
             "state": state, "before": before, "params": params, "stats": stats,
             "frozen": batchnorm_params(model)}
