@@ -23,8 +23,10 @@ each printing one JSON line per check or configuration:
    backend (plane, fused, pallas);
 3. main_path: for each configuration (lookup backend, batch) one 448x1024,
    12-iteration bf16 forward with the launch counters reset, which must
-   launch each kernel the expected number of times; then pairs/s over 20
-   back-to-back forwards, peak device memory, and the configuration's lookup
+   launch each kernel the expected number of times and run every K2 launch
+   on the conv's tensor-core body; then pairs/s over 20 back-to-back
+   forwards, peak device memory, device time and idle share of one forward
+   (torch.profiler), and the configuration's lookup
    kernel timed against its plain version on the inputs of the forward's
    last lookup; the encoder kernels K2-K4 are timed at B=1. Kernel, plain
    and library times are device time (the timed calls queue behind a spin
@@ -52,9 +54,11 @@ each printing one JSON line per check or configuration:
    plain versions on its lookup inputs), the KITTI semi step with the
    teacher SMURF loss (360x640 and 288x640 crops of 368x1240 frames), the
    Unsup step (368x768 crops of 432x1024 frames) and the chairs Baseline step
-   (B=10, 368x496, unfrozen batch norm).
+   (B=10, 368x496, unfrozen batch norm); every K2 launch of a step must run
+   the conv's tensor-core body.
 
-Then it prints a JSON line of the kernels (launches in their configuration's
+Then it prints K2's and K5's device time per fnet stage shape beside
+``F.conv2d``'s, a JSON line of the kernels (launches in their configuration's
 main-path run, max error, kernel, plain and library ms per forward (K8/K9:
 per train step; K5: per forward's fnet stage convs; K11: per 12 lookups),
 and the least time the card could take for the same work) and last
@@ -252,7 +256,18 @@ def reset_launch_counts() -> None:
     corr_plane.launches = conv3x3.launches = norm.stats_launches = norm.apply_launches = 0
     corr_fused.all_launches = corr_fused.level_launches = corr_lookup_v2.launches = 0
     corr_fused.bwd_df1_launches = corr_fused.bwd_df2_launches = 0
-    conv3x3.bare_launches = corr_lookup.launches = 0
+    conv3x3.bare_launches = corr_lookup.launches = conv3x3.tc_launches = 0
+
+
+def check_tc_launches(where: str, want: int) -> int:
+    """Raises unless exactly `want` launches of K2 / K5 since the last reset
+    ran the conv's tensor-core body (every bf16 conv of the model should)."""
+    from flow_supervisor_tpu_torch.kernels import conv3x3
+
+    if conv3x3.tc_launches != want:
+        raise AssertionError(f"{where}: {conv3x3.tc_launches} conv launches on the tensor-core "
+                             f"body, expected {want}")
+    return conv3x3.tc_launches
 
 
 def time_ms(fn, reps=20, warm=3, device_only=False) -> float:
@@ -447,20 +462,25 @@ def phase_kernels(dev):
             if bf16 and (b, h8) == (1, 50):
                 errs["bwd_df1"], errs["bwd_df2"] = e8, e9
             del pyr, got, want, f1p, f2p
-        # K2: the three stage shapes and a width that is not a multiple of 8
-        for shape, cout, _ in CONV_SHAPES + [((2, 55, 90, 128), 128, 0)]:
+        # K2: the three stage shapes, a width that is not a multiple of 8 and
+        # the KITTI fnet width (155) at C = 96, Cout = 72; bf16 on the
+        # tensor-core body, fp32 on the CUDA cores
+        for shape, cout, n in CONV_SHAPES + [((2, 55, 90, 128), 128, 0), ((2, 46, 155, 96), 72, 0)]:
             c = shape[3]
             x = torch.randn(*shape, generator=gen).to(dev, dtype)
             w = (torch.randn(3, 3, c, cout, generator=gen) * (2.0 / (9 * cout)) ** 0.5).to(dev, dtype)
             b = (0.1 * torch.randn(cout, generator=gen)).to(dev, dtype)
+            tc0 = conv3x3.tc_launches
             y, st = conv3x3.conv3x3_stats(x, w, b)
+            if conv3x3.tc_launches - tc0 != int(bf16):
+                raise AssertionError(f"K2 {shape} {dtype}: tensor-core launches {conv3x3.tc_launches - tc0}")
             y_ref, st_ref = conv3x3.conv3x3_stats_plain(x, w, b)
             # fp32: only the summation order of 9*C <= 1152 terms differs
             e = check_close(f"K2 y {shape} {dtype}", y, y_ref, 1e-2 if bf16 else 1e-4, 1e-5)
             es = check_close(f"K2 stats {shape} {dtype}", st, st_ref, 1e-4, 1e-5)
-            checks.append({"kernel": "conv3x3_stats", "shape": list(shape), "dtype": str(dtype),
-                           "err": e, "stats_err": es})
-            if bf16 and shape[1] != 55:
+            checks.append({"kernel": "conv3x3_stats", "shape": list(shape), "cout": cout,
+                           "dtype": str(dtype), "err": e, "stats_err": es, "tensor_cores": bf16})
+            if bf16 and n:
                 errs["conv3x3_stats"] = max(errs["conv3x3_stats"], e)
         # K3 / K4, relu on and off
         for shape, _ in STATS_SHAPES:
@@ -481,17 +501,21 @@ def phase_kernels(dev):
                 errs["norm_stats"] = max(errs["norm_stats"], e)
         # K5: the fnet stage shapes and a ragged one, relu off and on; fp32:
         # only the summation order of 9*C <= 1152 terms differs
-        for shape, cout, _ in CONV_SHAPES + [((2, 55, 90, 128), 72, 0)]:
+        for shape, cout, n in CONV_SHAPES + [((2, 55, 90, 128), 72, 0), ((2, 46, 155, 96), 72, 0)]:
             c = shape[3]
             x = torch.randn(*shape, generator=gen).to(dev, dtype)
             w = (torch.randn(3, 3, c, cout, generator=gen) * (2.0 / (9 * cout)) ** 0.5).to(dev, dtype)
             b = (0.1 * torch.randn(cout, generator=gen)).to(dev, dtype)
             for relu in (False, True):
-                e = check_close(f"K5 {shape} relu={relu} {dtype}", conv3x3.conv3x3_bare(x, w, b, relu),
+                tc0 = conv3x3.tc_launches
+                got = conv3x3.conv3x3_bare(x, w, b, relu)
+                if conv3x3.tc_launches - tc0 != int(bf16):
+                    raise AssertionError(f"K5 {shape} {dtype}: tensor-core launches {conv3x3.tc_launches - tc0}")
+                e = check_close(f"K5 {shape} relu={relu} {dtype}", got,
                                 conv3x3.conv3x3_bare_plain(x, w, b, relu), 1e-2 if bf16 else 1e-4, 1e-5)
                 checks.append({"kernel": "conv3x3_bare", "shape": list(shape), "cout": cout,
-                               "relu": relu, "dtype": str(dtype), "err": e})
-                if bf16 and shape[1] != 55:
+                               "relu": relu, "dtype": str(dtype), "err": e, "tensor_cores": bf16})
+                if bf16 and n:
                     errs["conv3x3_bare"] = max(errs["conv3x3_bare"], e)
         # K11: volumes in dtype (read as fp32, fp32 out) at the ragged 55x127
         # and the 448x1024 shape (level 0: 7168 x 7168); the same bilinear
@@ -703,6 +727,7 @@ def phase_main_path(dev):
 
     from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
     from flow_supervisor_tpu_torch.ops.coords import coords_grid
+    from flow_supervisor_tpu_torch.profile_forward import profile
 
     bf16 = torch.bfloat16
     launches, times, summary = {}, {}, []
@@ -730,6 +755,7 @@ def phase_main_path(dev):
             raise AssertionError(f"{backend} B={batch}: main path output bad, shape {tuple(flow.shape)}")
         if got != want:
             raise AssertionError(f"{backend} B={batch}: launch counts {got} != expected {want}")
+        tc = check_tc_launches(f"{backend} B={batch}", ENCODER_LAUNCHES["conv3x3_stats"])
         launches[(backend, batch)] = got
         # the coords of the last (12th) lookup: coords0 + the flow after 11 updates
         h8, w8 = MAIN_HW[0] // 8, MAIN_HW[1] // 8
@@ -740,6 +766,8 @@ def phase_main_path(dev):
         torch.cuda.reset_peak_memory_stats()
         fwd_ms = time_ms(forward, reps=20, warm=3)
         peak = torch.cuda.max_memory_allocated()
+        # device time, idle share and launches of one forward (torch.profiler)
+        prof = profile(forward, n=1)
         with torch.no_grad():
             pyramid = model.build_corr(*model.features(img1, img2))
         name, t = lookup_timing(backend, batch, pyramid, coords, dev)
@@ -749,8 +777,13 @@ def phase_main_path(dev):
         torch.cuda.empty_cache()
         res = {"phase": "main_path", "ok": True, "lookup_backend": backend, "batch": batch,
                "hw": list(MAIN_HW), "iters": ITERS, "dtype": "bfloat16", "launches": got,
+               "conv_tensor_core_launches": tc,
                "fwd_ms": fwd_ms, "pairs_per_s": 1000.0 * batch / fwd_ms,
-               "peak_mem_bytes": peak, "lookup_kernel": {name: t}}
+               "peak_mem_bytes": peak, "lookup_kernel": {name: t},
+               "device_ms_per_forward": prof.get("device_ms_per_forward"),
+               "device_idle_share": prof.get("device_idle_share"),
+               "launches_per_forward_all": prof.get("launches_per_forward"),
+               "by_category_ms_per_forward": prof.get("by_category_ms_per_forward")}
         emit(res)
         summary.append(res)
     enc = encoder_timing(dev)
@@ -813,6 +846,7 @@ def phase_own_paths(dev):
     want.update(conv3x3_bare=sum(n for *_, n in convs), corr_lookup_volume=ITERS * LEVELS)
     if got != want:
         raise AssertionError(f"own paths: launch counts {got} != expected {want}")
+    check_tc_launches("K5 own path", want["conv3x3_bare"])
     x, w, b, _ = convs[-1]
     e5 = check_close("K5 own path", ys[-1], conv3x3.conv3x3_bare_plain(x, w, b), 1e-2, 1e-5)
     want11 = torch.cat([corr_lookup.lookup_level_plain(v, coords[-1] / 2.0 ** i, RADIUS)
@@ -1164,6 +1198,7 @@ def train_main(dev, kind: str, batches, **shapes):
     want.update({k: TRAIN_STEPS_MAIN * v for k, v in STEP_LAUNCHES[kind].items()})
     if got != want:
         raise AssertionError(f"{kind} train main path: launch counts {got} != expected {want}")
+    tc = check_tc_launches(f"{kind} train main path", want["conv3x3_stats"])
     if len(rows) != TRAIN_STEPS_MAIN or not all(
             math.isfinite(v) for r in rows for v in r.values() if isinstance(v, float)):
         raise AssertionError(f"{kind} train main path: bad metrics rows {rows}")
@@ -1195,6 +1230,7 @@ def train_main(dev, kind: str, batches, **shapes):
            **{k: list(v) if isinstance(v, tuple) else v for k, v in shapes.items()},
            "iters": ITERS, "dtype": "bfloat16", "main_path_steps": TRAIN_STEPS_MAIN,
            "launches": got, "launches_per_step": {k: v // TRAIN_STEPS_MAIN for k, v in got.items()},
+           "conv_tensor_core_launches": tc,
            "metrics_rows": rows, "timed_steps": TRAIN_STEPS_TIMED, "step_ms": step_ms,
            "steps_per_s": 1000.0 / step_ms, "peak_mem_bytes": peak, "last_log": log,
            "device_ms_per_step": prof.get("device_ms_per_forward"),
@@ -1289,6 +1325,13 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "config": config,
         })
+    # K2 and K5 per fnet stage shape beside F.conv2d (bf16, device ms per call)
+    emit({"conv_per_shape": [
+        {"shape": shape, "cout": cout, "calls_per_forward": n, "conv3x3_stats_ms": k2[1],
+         "conv3x3_bare_ms": k5[2], "library_ms": k2[3], "library_ms_k5_run": k5[4],
+         "plain_ms": k2[2], "plain_ms_k5": k5[3]}
+        for (shape, cout, n), k2, k5 in zip(CONV_SHAPES, times[("plane", 1)]["conv3x3_stats"]["per_call"],
+                                           times[("own", 1)]["conv3x3_bare"]["per_call"])]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -57,6 +57,9 @@ SIGNATURES = {
     "fst_conv3x3_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # x, w_hwio, bias, y, B, H, W, C, Cout, dtype, relu, stream
     "fst_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # the tensor-core body (bf16): the same arguments without dtype
+    "fst_conv3x3_tc_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "fst_conv3x3_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # vol (level l, [BQ, h2, w2]), h2, w2, coords (level 0), level, out, out_stride, bq,
     # radius, in_dtype, stream
     "fst_corr_lookup_level": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P],

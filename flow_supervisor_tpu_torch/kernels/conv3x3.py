@@ -20,8 +20,11 @@ the incoming cotangent cast to that dtype first. No model path of either
 package calls it; its own function is the only caller.
 
 Each wrapper takes the plain PyTorch version only for CPU tensors; for CUDA
-tensors it launches the kernel or raises. ``launches`` (K2) and
-``bare_launches`` (K5) count kernel launches.
+tensors it launches the kernel or raises. The kernel has two bodies
+(csrc/conv3x3.cu): bf16 convs of the shapes ``tensor_core_body`` accepts (every
+conv of the model) run on the tensor cores, fp32 and other bf16 shapes on the
+CUDA cores. ``launches`` (K2) and ``bare_launches`` (K5) count every kernel
+launch, ``tc_launches`` those of K2 and K5 that ran the tensor-core body.
 """
 from __future__ import annotations
 
@@ -33,6 +36,20 @@ from flow_supervisor_tpu_torch.kernels.norm import EPS, instance_norm_apply, nor
 
 launches = 0
 bare_launches = 0
+tc_launches = 0
+
+
+def tensor_core_body(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether a conv of x [B, H, W, C] by w [3, 3, C, Cout] runs the
+    tensor-core body: bf16, C % 16 == 0 and C <= 128, Cout % 8 == 0 and
+    Cout <= 128, x and w 16-byte aligned (csrc/conv3x3.cu ``tc_shape_ok``)."""
+    c, cout = x.shape[3], w.shape[3]
+    return (
+        x.dtype == torch.bfloat16
+        and c % 16 == 0 and 16 <= c <= 128
+        and cout % 8 == 0 and 8 <= cout <= 128
+        and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    )
 
 
 def conv3x3_stats_plain(
@@ -71,7 +88,7 @@ def conv3x3_stats(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = EPS
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K2: (conv3x3(x, w) + b in x's dtype, fp32 stats [B, 2, Cout])."""
-    global launches
+    global launches, tc_launches
     _check_args(x, w, b)
     if not _build.uses_kernel("conv3x3_stats", x, w, b):
         return conv3x3_stats_plain(x, w, b, eps)
@@ -82,14 +99,17 @@ def conv3x3_stats(
     y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
     partials = torch.empty((bsz, parts, 2, cout), dtype=torch.float32, device=x.device)
     stats = torch.empty((bsz, 2, cout), dtype=torch.float32, device=x.device)
+    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), partials.data_ptr(),
+            stats.data_ptr(), bsz, h, wd, c, cout)
+    tc = tensor_core_body(x, w)
     with torch.cuda.device(x.device):
-        rc = lib.fst_conv3x3_stats(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-            partials.data_ptr(), stats.data_ptr(), bsz, h, wd, c, cout,
-            _build.dtype_code(x), eps, _build.stream_of(x),
-        )
+        if tc:
+            rc = lib.fst_conv3x3_tc_stats(*ptrs, eps, _build.stream_of(x))
+        else:
+            rc = lib.fst_conv3x3_stats(*ptrs, _build.dtype_code(x), eps, _build.stream_of(x))
     _build.check(rc, "conv3x3_stats")
     launches += 1
+    tc_launches += tc
     return y, stats
 
 
@@ -146,20 +166,24 @@ def conv3x3_bare(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = False
 ) -> torch.Tensor:
     """K5: conv3x3(x, w) + b (+ relu) in x's dtype, NHWC / HWIO."""
-    global bare_launches
+    global bare_launches, tc_launches
     _check_args(x, w, b, "conv3x3_fused")
     if not _build.uses_kernel("conv3x3_fused", x, w, b):
         return conv3x3_bare_plain(x, w, b, relu)
     bsz, h, wd, c = x.shape
     cout = w.shape[3]
     y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
+    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h, wd, c, cout)
+    tc = tensor_core_body(x, w)
+    lib = _build.lib()
     with torch.cuda.device(x.device):
-        rc = _build.lib().fst_conv3x3(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h, wd, c, cout,
-            _build.dtype_code(x), int(relu), _build.stream_of(x),
-        )
+        if tc:
+            rc = lib.fst_conv3x3_tc(*ptrs, int(relu), _build.stream_of(x))
+        else:
+            rc = lib.fst_conv3x3(*ptrs, _build.dtype_code(x), int(relu), _build.stream_of(x))
     _build.check(rc, "conv3x3_fused")
     bare_launches += 1
+    tc_launches += tc
     return y
 
 

@@ -200,6 +200,78 @@ def test_cuda_k5_matches_plain(cuda, dtype, relu, shape):
         assert float(y.min()) == 0.0
 
 
+# The conv's tensor-core body (bf16): ragged widths (the KITTI fnet's 155,
+# 90, the chairs Baseline's 248) at small H, where there are fewer 64-pixel
+# row tiles than warpgroups on the card; C = 96 with Cout = 72 (two parts of
+# 48 channels); B = 2; and the 128-channel stage of a 448x1024 forward, which
+# runs one warpgroup an SM
+TC_SHAPES = [(2, 6, 155, 64, 64), (2, 5, 90, 96, 72), (1, 7, 248, 128, 128),
+             (2, 9, 155, 96, 96), (2, 56, 128, 128, 128)]
+
+
+def _conv_inputs(shape, dtype, dev, seed):
+    b, h, w, c, co = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, w, c, generator=g).to(dev, dtype)
+    k = (torch.randn(3, 3, c, co, generator=g) * (2.0 / (9 * co)) ** 0.5).to(dev, dtype)
+    bias = (0.1 * torch.randn(co, generator=g)).to(dev, dtype)
+    return x, k, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_cuda_k2_tensor_cores_match_plain(cuda, shape):
+    x, k, bias = _conv_inputs(shape, torch.bfloat16, cuda, 21)
+    n = conv3x3.tc_launches
+    y, st = conv3x3.conv3x3_stats(x, k, bias)
+    assert conv3x3.tc_launches == n + 1
+    y_ref, st_ref = conv3x3.conv3x3_stats_plain(x, k, bias)
+    # y: 1 bf16 ulp of the fp32-accumulated value; the statistics come from
+    # the same fp32 sums in another order
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=1e-2, atol=1e-5)
+    torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_cuda_k5_tensor_cores_match_plain(cuda, shape, relu):
+    x, k, bias = _conv_inputs(shape, torch.bfloat16, cuda, 22)
+    n = conv3x3.tc_launches
+    y = conv3x3.conv3x3_fused(x, k, bias, relu)
+    assert conv3x3.tc_launches == n + 1
+    y_ref = conv3x3.conv3x3_bare_plain(x, k, bias, relu)
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=1e-2, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 9, 155, 96, 72), (2, 56, 128, 128, 128)])
+def test_cuda_k2_tensor_core_stats_are_bit_identical(cuda, shape):
+    x, k, bias = _conv_inputs(shape, torch.bfloat16, cuda, 23)
+    y1, st1 = conv3x3.conv3x3_stats(x, k, bias)
+    y2, st2 = conv3x3.conv3x3_stats(x, k, bias)
+    assert torch.equal(st1, st2) and torch.equal(y1, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,co,dtype,tc", [
+    (64, 64, torch.bfloat16, True), (96, 96, torch.bfloat16, True),
+    (128, 128, torch.bfloat16, True), (64, 64, torch.float32, False),
+    (128, 128, torch.float32, False), (8, 64, torch.bfloat16, False),
+])
+def test_cuda_conv_body_counter_follows_the_rule(cuda, c, co, dtype, tc):
+    x, k, bias = _conv_inputs((1, 6, 20, c, co), dtype, cuda, 24)
+    counts = (conv3x3.launches, conv3x3.bare_launches, conv3x3.tc_launches)
+    y, _ = conv3x3.conv3x3_stats(x, k, bias)
+    y5 = conv3x3.conv3x3_fused(x, k, bias)
+    assert (conv3x3.launches, conv3x3.bare_launches, conv3x3.tc_launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 2 * tc)
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(y.float(), conv3x3.conv3x3_stats_plain(x, k, bias)[0].float(),
+                               rtol=rtol, atol=1e-4)
+    torch.testing.assert_close(y5.float(), y.float(), rtol=0, atol=0)
+
+
 @pytest.mark.cuda
 def test_cuda_k5_backward_matches_the_cpu(cuda):
     """The VJP (PyTorch's conv backward, relu mask from the recomputed conv)
