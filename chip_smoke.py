@@ -17,7 +17,8 @@ each printing one JSON line per check or configuration:
    backward, bwd_df1 / bwd_df2) and K11 (corr_lookup, the 5-D volume's
    window) on the card against their plain PyTorch versions at the main
    paths' shapes and ragged ones, fp32 (TF32 off) and bf16, with lookup
-   coords in bounds, partly out and far out of bounds;
+   coords in bounds, partly out and far out of bounds; K1 also at radius 1
+   and 3, B=2, one level, and launched twice (bit-identical outputs);
 2. parity: a 216x512, 12-iteration fp32 forward on the card (kernels) against
    the same model and weights on the CPU (plain versions), for each lookup
    backend (plane, fused, pallas);
@@ -28,7 +29,8 @@ each printing one JSON line per check or configuration:
    forwards, peak device memory, device time and idle share of one forward
    (torch.profiler), and the configuration's lookup
    kernel timed against its plain version on the inputs of the forward's
-   last lookup; the encoder kernels K2-K4 are timed at B=1. Kernel, plain
+   last lookup, with its share of the bound (and the library call's, where
+   there is one); the encoder kernels K2-K4 are timed at B=1. Kernel, plain
    and library times are device time (the timed calls queue behind a spin
    kernel); the forward's time is back to back, host included;
    own_paths: K5 and K11 through their own public functions
@@ -377,6 +379,38 @@ def support_taps(coords, shapes) -> int:
     return total
 
 
+def k1_checks(dev, checks):
+    """K1 beyond the main-path shapes, against its plain version: radius 1, 3
+    and 4 (1 and 3 run the body that takes the radius as an argument), B=1 at the
+    main shape and B=2 at the ragged 55x127 one, one level and four, coords
+    in, partly and far out of bounds, fp32 and bf16; each case launched twice,
+    and the two outputs must be bit-identical."""
+    import torch
+
+    from flow_supervisor_tpu_torch.kernels import corr_plane
+    from flow_supervisor_tpu_torch.kernels.corr_plane import build_plane_pyramid
+
+    gen = torch.Generator().manual_seed(11)
+    main8 = (MAIN_HW[0] // 8, MAIN_HW[1] // 8)
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol = 1e-2 if dtype == torch.bfloat16 else 0.0
+        for b, (h8, w8) in ((1, main8), (2, (55, 127))):
+            f1, f2 = fmaps(b, h8, w8, dtype, gen, dev)
+            coords = check_coords(b * h8 * w8, h8, w8, gen, dev)
+            for levels in (1, LEVELS):
+                planes = build_plane_pyramid(f1, f2, levels, dtype)
+                for radius in (1, 3, RADIUS):
+                    name = f"K1 B={b} {h8}x{w8} levels={levels} r={radius} {dtype}"
+                    got = corr_plane.corr_lookup(planes, coords, radius, dtype)
+                    want = corr_plane.corr_lookup_plain(planes, coords, radius, torch.float32)
+                    e = check_close(name, got, want, rtol, 1e-5)
+                    if not torch.equal(corr_plane.corr_lookup(planes, coords, radius, dtype), got):
+                        raise AssertionError(f"{name}: two launches differ")
+                    checks.append({"kernel": "corr_plane", "batch": b, "shape": [h8, w8],
+                                   "levels": levels, "radius": radius, "dtype": str(dtype),
+                                   "err": e, "bit_identical": True})
+
+
 def phase_kernels(dev):
     import torch
 
@@ -388,6 +422,7 @@ def phase_kernels(dev):
 
     gen = torch.Generator().manual_seed(1)
     errs, checks = {k: 0.0 for k in SOURCES}, []
+    k1_checks(dev, checks)
     main8 = (MAIN_HW[0] // 8, MAIN_HW[1] // 8)
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -658,10 +693,12 @@ def lookup_timing(backend, batch, pyramid, coords, dev):
         in_dtype = planes[0].dtype
         library_err = None
     t_bytes, t_ops = bound(nbytes, ops, in_dtype)
+    bound_ms = max(t_bytes, t_ops) * ITERS
     return name, {"ms": k * ITERS, "plain_ms": p * ITERS, "library_ms": library_ms,
-                  "library_max_abs_err": library_err,
-                  "bound_ms": max(t_bytes, t_ops) * ITERS,
+                  "library_max_abs_err": library_err, "bound_ms": bound_ms,
                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                  "share_of_bound": bound_ms / (k * ITERS),
+                  "library_share_of_bound": None if library_ms is None else bound_ms / library_ms,
                   "bytes_per_call": nbytes, "ops_per_call": ops}
 
 

@@ -13,20 +13,41 @@
 // bounds cannot overflow, and a clamped window lies wholly outside the plane,
 // so it still reads 0.
 //
-// What bounds it on an H100: it is a bandwidth- and latency-bound gather with
-// no reuse across queries -- each query reads about 100 values of its own
-// plane per level ((2r+2)^2 support) and does ~4 FMAs per value. This first
-// version gives every output element its own thread (4 taps each, neighbouring
-// threads on neighbouring window rows, so the support's repeated reads hit L1)
-// and writes the output row of each query contiguously. The TPU version's
-// 128-lane group packing, BAND row padding and SMEM index planes existed for
-// the TPU's (8, 128) tiling and are not carried over: planes are plain
-// [BQ, h2, w2] arrays and each thread does its own index math.
+// What bounds it on an H100: a gather with no reuse across queries. Each
+// query reads the (2r+2)^2 support of its window in its own plane at every
+// level (400 values at r = 4, L = 4: 800 bytes in bf16, in 20-byte row
+// segments) and does 4 products per output, so the bytes bound it (0.033 ms
+// per 448x1024 forward's 12 lookups); what limits it in practice is the
+// latency of those scattered loads. The first version gave every output
+// element its own thread: each recomputed the window base, did a 64-bit
+// division, and loaded its own 4 taps, so every support value was read about
+// 3.2 times; it took 1.108 ms per forward (NVIDIA H100 80GB HBM3, 700 W).
+//
+// This design (K11's shape, csrc/corr_lookup.cu): one warp per query, all
+// levels in one launch. The lanes read the coords once; each level's base and
+// fractions are computed once per lane, with no integer division at run time
+// for RAFT's radius (4 is compiled with the radius fixed; any other radius
+// runs the same body with it as an argument). Every support tap
+// is read once: neighbouring lanes read neighbouring columns of one plane row,
+// zeros stand where a tap lies outside the plane, and the support goes into
+// the warp's slice of shared memory (row stride 2r+3, odd, so lanes on
+// neighbouring window rows hit distinct banks). Each lane then combines its
+// outputs' 4 taps with the plain version's weights in its order and rounding
+// (ops/corr.py `combine_support`: no fused multiply-add), so an fp32 output
+// equals the plain version's, and writes them: neighbouring lanes write
+// neighbouring channels of the query's contiguous output row. No atomics: the
+// output is the same from run to run. A radius whose support does not fit in
+// shared memory is refused (cudaErrorInvalidValue). Staging all levels' loads
+// in registers first, a staged output row written in 16-byte stores, 16
+// warps a block, persistent warps that prefetch the next query, and cp.async
+// staging of the rows' aligned words were each slower on the card
+// (flow_supervisor_tpu_torch/probe_k1.py, PERF.md).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxLevels = 8;
+constexpr int kWarps = 8;  // queries per block
 
 struct Levels {
   const void* plane[kMaxLevels];
@@ -34,65 +55,123 @@ struct Levels {
   int w2[kMaxLevels];
 };
 
-template <typename TIn, typename TOut>
-__global__ void corr_plane_kernel(Levels lv, int levels, const float* __restrict__ coords,
-                                  TOut* __restrict__ out, int bq, int radius) {
-  const int k = 2 * radius + 1;
-  const int k2 = k * k;
-  const int row = levels * k2;
-  const long total = (long)bq * row;
-  for (long idx = (long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (long)gridDim.x * blockDim.x) {
-    const long q = idx / row;
-    const int ch = (int)(idx % row);
-    const int l = ch / k2;
-    const int t = ch % k2;
-    const int ix = t / k;  // dx index (major)
-    const int iy = t % k;  // dy index (minor)
-    const TIn* plane = static_cast<const TIn*>(lv.plane[l]);
-    const int h2 = lv.h2[l];
-    const int w2 = lv.w2[l];
-    const float scale = 1.0f / (float)(1 << l);
-    const float cx = coords[2 * q] * scale;
-    const float cy = coords[2 * q + 1] * scale;
-    const float flx = floorf(cx);
-    const float fly = floorf(cy);
-    const float fx = cx - flx;
-    const float fy = cy - fly;
-    const float sup = (float)(2 * radius + 2);
-    const int bx = (int)fminf(fmaxf(flx - radius, -sup), (float)w2);
-    const int by = (int)fminf(fmaxf(fly - radius, -sup), (float)h2);
-    const int x0 = bx + ix;
-    const int y0 = by + iy;
-    const TIn* base = plane + q * (long)h2 * w2;
-    float p[2][2];
+// Shared memory of one warp: the support [levels][2r+2][2r+3] in fp32.
+__host__ __device__ inline long warp_floats(int levels, int radius) {
+  const long s = 2L * radius + 2;
+  return levels * s * (s + 1);
+}
+
+// R >= 0: the radius is fixed at compile time (the loops unroll and the
+// divisions by 2r+1 and 2r+2 become multiplications); R < 0: it is the argument.
+template <typename TIn, typename TOut, int R>
+__global__ void __launch_bounds__(kWarps * 32)
+corr_plane_kernel(Levels lv, int levels, const float* __restrict__ coords,
+                  TOut* __restrict__ out, int bq, int radius_arg) {
+  extern __shared__ float s_sup[];
+  const int r = R >= 0 ? R : radius_arg;
+  const int S = 2 * r + 2;  // support side
+  const int SP = S + 1;     // support row stride in shared memory
+  const int K = 2 * r + 1;  // window side
+  const int K2 = K * K;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q = blockIdx.x * kWarps + warp;
+  if (q >= bq) return;  // whole warps only: no block-wide barrier below
+  float* sup = s_sup + warp * warp_floats(levels, r);
+  const float qx = coords[2L * q];
+  const float qy = coords[2L * q + 1];
+
+  // 1. every support tap of every level, read once
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
+  for (int l = 0; l < kMaxLevels; ++l) {
+    if (l < levels) {
+      const float scale = 1.f / (float)(1 << l);
+      const int h2 = lv.h2[l];
+      const int w2 = lv.w2[l];
+      const int bx = (int)fminf(fmaxf(floorf(qx * scale) - r, -(float)S), (float)w2);
+      const int by = (int)fminf(fmaxf(floorf(qy * scale) - r, -(float)S), (float)h2);
+      const TIn* plane = static_cast<const TIn*>(lv.plane[l]) + (long)q * h2 * w2;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int yy = y0 + a;
-        const int xx = x0 + c;
-        p[a][c] = (yy >= 0 && yy < h2 && xx >= 0 && xx < w2)
-                      ? fst_load(base, (long)yy * w2 + xx)
-                      : 0.f;
+      for (int j = 0; j < (S * S + 31) / 32; ++j) {
+        const int t = lane + 32 * j;
+        const int u = t / S;
+        const int v = t - u * S;
+        const int y = by + u;
+        const int x = bx + v;
+        if (t < S * S) {
+          sup[(l * S + u) * SP + v] = (y >= 0 && y < h2 && x >= 0 && x < w2)
+                                          ? fst_load(plane, (long)y * w2 + x)
+                                          : 0.f;
+        }
       }
     }
-    const float v = (1.f - fy) * (1.f - fx) * p[0][0] + (1.f - fy) * fx * p[0][1] +
-                    fy * (1.f - fx) * p[1][0] + fy * fx * p[1][1];
-    fst_store(out, idx, v);
+  }
+  __syncwarp();
+
+  // 2. each lane combines its outputs' 4 taps, as combine_support does:
+  //    ((w00 * p00 + w01 * p01) + w10 * p10) + w11 * p11, every step rounded
+  TOut* orow = out + (long)q * levels * K2;
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l) {
+    if (l < levels) {
+      const float scale = 1.f / (float)(1 << l);
+      const float cx = qx * scale;
+      const float cy = qy * scale;
+      const float fx = __fsub_rn(cx, floorf(cx));
+      const float fy = __fsub_rn(cy, floorf(cy));
+      const float gx = __fsub_rn(1.f, fx);
+      const float gy = __fsub_rn(1.f, fy);
+      const float w00 = __fmul_rn(gy, gx);
+      const float w01 = __fmul_rn(gy, fx);
+      const float w10 = __fmul_rn(fy, gx);
+      const float w11 = __fmul_rn(fy, fx);
+      const float* ps = sup + l * S * SP;
+#pragma unroll
+      for (int m = 0; m < (K2 + 31) / 32; ++m) {
+        const int o = lane + 32 * m;
+        if (o < K2) {
+          const int dx = o / K;  // dx-major: o = dx * K + dy
+          const int dy = o - dx * K;
+          const float* p = ps + dy * SP + dx;
+          const float acc = __fadd_rn(
+              __fadd_rn(__fadd_rn(__fmul_rn(w00, p[0]), __fmul_rn(w01, p[1])),
+                        __fmul_rn(w10, p[SP])),
+              __fmul_rn(w11, p[SP + 1]));
+          fst_store(orow, l * K2 + o, acc);
+        }
+      }
+    }
   }
 }
 
-template <typename TIn, typename TOut>
+template <typename TIn, typename TOut, int R>
 cudaError_t launch(const Levels& lv, int levels, const float* coords, void* out, int bq,
                    int radius, cudaStream_t s) {
-  const long total = (long)bq * levels * (2 * radius + 1) * (2 * radius + 1);
-  const int threads = 256;
-  const long want = (total + threads - 1) / threads;
-  const int blocks = (int)(want < 132L * 64 ? want : 132L * 64);
-  corr_plane_kernel<TIn, TOut><<<blocks, threads, 0, s>>>(lv, levels, coords,
-                                                         static_cast<TOut*>(out), bq, radius);
+  const long smem = kWarps * warp_floats(levels, radius) * (long)sizeof(float);
+  auto kernel = corr_plane_kernel<TIn, TOut, R>;
+  if (smem > 48 * 1024) {  // beyond the default: the card's opt-in limit holds
+    int dev = 0;
+    int optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    }
+    if (err != cudaSuccess) return err;
+    if (smem > optin) return cudaErrorInvalidValue;  // the support does not fit
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = (bq + kWarps - 1) / kWarps;
+  kernel<<<blocks, kWarps * 32, smem, s>>>(lv, levels, coords, static_cast<TOut*>(out), bq,
+                                          radius);
   return cudaGetLastError();
+}
+
+template <typename TIn, typename TOut>
+cudaError_t launch_radius(const Levels& lv, int levels, const float* coords, void* out, int bq,
+                          int radius, cudaStream_t s) {
+  if (radius == 4) return launch<TIn, TOut, 4>(lv, levels, coords, out, bq, radius, s);
+  return launch<TIn, TOut, -1>(lv, levels, coords, out, bq, radius, s);
 }
 
 }  // namespace
@@ -102,7 +181,9 @@ extern "C" {
 int fst_corr_plane_lookup(const void* const* planes, const int* h2, const int* w2, int levels,
                           const void* coords, void* out, int bq, int radius, int in_dtype,
                           int out_dtype, void* stream) {
-  if (levels < 1 || levels > kMaxLevels || bq < 1) return (int)cudaErrorInvalidValue;
+  if (levels < 1 || levels > kMaxLevels || bq < 1 || radius < 0 || radius > 4096) {
+    return (int)cudaErrorInvalidValue;
+  }
   Levels lv;
   for (int l = 0; l < levels; ++l) {
     lv.plane[l] = planes[l];
@@ -111,19 +192,19 @@ int fst_corr_plane_lookup(const void* const* planes, const int* h2, const int* w
   }
   cudaStream_t s = (cudaStream_t)stream;
   const float* c = static_cast<const float*>(coords);
-  cudaError_t err;
   if (in_dtype == FST_F32 && out_dtype == FST_F32) {
-    err = launch<float, float>(lv, levels, c, out, bq, radius, s);
-  } else if (in_dtype == FST_F32 && out_dtype == FST_BF16) {
-    err = launch<float, __nv_bfloat16>(lv, levels, c, out, bq, radius, s);
-  } else if (in_dtype == FST_BF16 && out_dtype == FST_F32) {
-    err = launch<__nv_bfloat16, float>(lv, levels, c, out, bq, radius, s);
-  } else if (in_dtype == FST_BF16 && out_dtype == FST_BF16) {
-    err = launch<__nv_bfloat16, __nv_bfloat16>(lv, levels, c, out, bq, radius, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return (int)launch_radius<float, float>(lv, levels, c, out, bq, radius, s);
   }
-  return (int)err;
+  if (in_dtype == FST_F32 && out_dtype == FST_BF16) {
+    return (int)launch_radius<float, __nv_bfloat16>(lv, levels, c, out, bq, radius, s);
+  }
+  if (in_dtype == FST_BF16 && out_dtype == FST_F32) {
+    return (int)launch_radius<__nv_bfloat16, float>(lv, levels, c, out, bq, radius, s);
+  }
+  if (in_dtype == FST_BF16 && out_dtype == FST_BF16) {
+    return (int)launch_radius<__nv_bfloat16, __nv_bfloat16>(lv, levels, c, out, bq, radius, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -38,18 +38,54 @@ def cuda(monkeypatch):
     return torch.device("cuda")
 
 
+def _k1_case(dev, dtype, levels, seed):
+    """B=2 at 5x9 (90 queries: the last block of 8 is partly filled), coords
+    up to 15 px out of bounds and two far out (to 3e38)."""
+    f1, f2, coords = _lookup_inputs(b=2, h8=5, w8=9, c=64, seed=seed)
+    coords[0, 0, 0] = (1e9, -1e9)
+    coords[1, 4, 8] = (-3e38, 3e38)
+    planes = corr_plane.build_plane_pyramid(
+        torch.from_numpy(f1).to(dev), torch.from_numpy(f2).to(dev), levels, dtype
+    )
+    return planes, torch.from_numpy(coords).reshape(-1, 2).to(dev)
+
+
+# radius 4 runs the body with the radius fixed at compile time, the others
+# the body that takes it as an argument
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_k1_matches_plain(cuda, dtype):
-    f1, f2, coords = _lookup_inputs(b=2, h8=5, w8=9, c=64, seed=9)
-    planes = corr_plane.build_plane_pyramid(
-        torch.from_numpy(f1).to(cuda), torch.from_numpy(f2).to(cuda), 4, dtype
-    )
-    c = torch.from_numpy(coords).reshape(-1, 2).to(cuda)
-    got = corr_plane.corr_lookup(planes, c, R, dtype).float()
-    want = corr_plane.corr_lookup_plain(planes, c, R, torch.float32)
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+@pytest.mark.parametrize("radius", [0, 1, 3, 4, 8])
+def test_cuda_k1_matches_plain(cuda, dtype, levels, radius):
+    planes, c = _k1_case(cuda, dtype, levels, seed=20 + radius)
+    got = corr_plane.corr_lookup(planes, c, radius, dtype)
+    want = corr_plane.corr_lookup_plain(planes, c, radius, torch.float32)
+    assert got.shape == (90, levels * (2 * radius + 1) ** 2) and got.dtype == dtype
     tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
-    torch.testing.assert_close(got, want, **tol)
+    torch.testing.assert_close(got.float(), want, **tol)
+    assert torch.all(got[0] == 0) and torch.all(got[-1] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k1_is_bit_identical_across_launches(cuda, dtype):
+    planes, c = _k1_case(cuda, dtype, 4, seed=30)
+    first = corr_plane.corr_lookup(planes, c, R, dtype)
+    assert torch.equal(corr_plane.corr_lookup(planes, c, R, dtype), first)
+
+
+@pytest.mark.cuda
+def test_cuda_k1_refuses_a_radius_beyond_shared_memory(cuda):
+    """Radius 32: 8 warps of 4 levels' 66x67 fp32 supports need 566 KB of
+    shared memory; the launcher refuses, the wrapper raises, counts nothing,
+    and the next launch is unaffected."""
+    planes, c = _k1_case(cuda, torch.bfloat16, 4, seed=31)
+    before = corr_plane.launches
+    with pytest.raises(RuntimeError, match="corr_lookup"):
+        corr_plane.corr_lookup(planes, c, 32, torch.bfloat16)
+    assert corr_plane.launches == before
+    got = corr_plane.corr_lookup(planes, c, R, torch.float32)
+    torch.testing.assert_close(got, corr_plane.corr_lookup_plain(planes, c, R), atol=1e-5, rtol=0)
 
 
 @pytest.mark.cuda

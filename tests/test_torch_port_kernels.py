@@ -62,6 +62,21 @@ def test_k1_plain_matches_gather_oracle():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("levels", [2, 4])
+@pytest.mark.parametrize("radius", [1, 3])
+def test_k1_plain_matches_gather_oracle_at_other_radii(radius, levels):
+    """K1's plain version (the CUDA kernel's yardstick on the card) at radii
+    other than RAFT's 4, with 2 and 4 levels; B=2, windows partly and fully
+    out of bounds."""
+    f1, f2, coords = _lookup_inputs(b=2, h8=9, w8=13, c=32, seed=10 + radius)
+    planes = corr_plane.build_plane_pyramid(torch.from_numpy(f1), torch.from_numpy(f2), levels)
+    got = corr_plane.corr_pyramid_lookup_plane(planes, torch.from_numpy(coords), radius)
+    vols = jcorr.build_corr_pyramid_from_fmaps(jnp.asarray(f1), jnp.asarray(f2), levels)
+    want = jcorr.corr_pyramid_lookup_gather(vols, jnp.asarray(coords), radius)
+    assert got.shape == want.shape == (2, 9, 13, levels * (2 * radius + 1) ** 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
 def test_k1_far_out_of_bounds_coords_read_zero():
     f1, f2, coords = _lookup_inputs(seed=2)
     coords[0, 0, 0] = (1e9, -1e9)
