@@ -18,7 +18,10 @@ each printing one JSON line per check or configuration:
    window) on the card against their plain PyTorch versions at the main
    paths' shapes and ragged ones, fp32 (TF32 off) and bf16, with lookup
    coords in bounds, partly out and far out of bounds; K1 also at radius 1
-   and 3, B=2, one level, and launched twice (bit-identical outputs);
+   and 3, B=2, one level, and launched twice (bit-identical outputs); K9
+   also at smooth coords (the pixel grid plus N(0, 2 px), its tile path),
+   B=1 and 2, C = 36, 256 and 320, and mixed with queries that send their
+   tile to the per-query path;
 2. parity: a 216x512, 12-iteration fp32 forward on the card (kernels) against
    the same model and weights on the CPU (plain versions), for each lookup
    backend (plane, fused, pallas);
@@ -56,8 +59,9 @@ each printing one JSON line per check or configuration:
    plain versions on its lookup inputs), the KITTI semi step with the
    teacher SMURF loss (360x640 and 288x640 crops of 368x1240 frames), the
    Unsup step (368x768 crops of 432x1024 frames) and the chairs Baseline step
-   (B=10, 368x496, unfrozen batch norm); every K2 launch of a step must run
-   the conv's tensor-core body.
+   (B=10, 368x496, unfrozen batch norm; K8/K9 timed at its shape too); every
+   K2 launch of a step must run the conv's tensor-core body. Beside K9's
+   times, the share of its (level, tile) pairs that took the tile path.
 
 Then it prints K2's and K5's device time per fnet stage shape beside
 ``F.conv2d``'s, a JSON line of the kernels (launches in their configuration's
@@ -411,6 +415,81 @@ def k1_checks(dev, checks):
                                    "err": e, "bit_identical": True})
 
 
+def smooth_coords(b, h8, w8, gen, dev, sigma=2.0):
+    """[B*h8*w8, 2]: the pixel grid plus N(0, sigma px), as a lookup's coords
+    are at a smooth flow."""
+    import torch
+
+    ys, xs = torch.meshgrid(torch.arange(h8), torch.arange(w8), indexing="ij")
+    grid = torch.stack([xs, ys], -1).float().expand(b, h8, w8, 2).reshape(-1, 2)
+    return (grid + sigma * torch.randn(grid.shape, generator=gen)).to(dev).contiguous()
+
+
+def diverging_queries(b, h8, w8):
+    """Six queries a sample, in rows 12 and 24 (of >= 50): moved by (20, 20)
+    px their windows stay in the map, 20 px from the rest of their tile, so
+    the tile's level-0 box (>= 37 x 37 taps) exceeds MAX_BOX_TAPS."""
+    return [bi * h8 * w8 + qy * w8 + qx
+            for bi in range(b) for qy in (12, 24) for qx in (10, 40, 60)]
+
+
+def k9_paths(f1, f2s, coords) -> dict:
+    """K9's (level, tile) pairs by path (``bwd_df2_tiles``): how many take
+    the shared-memory tile path, how many add per query, the tile path's
+    share of the pairs with a valid query, and the rows (taps of C channels)
+    that the tile path's boxes add against those that one add per query and
+    valid tap (the first K9) would."""
+    from flow_supervisor_tpu_torch.kernels import corr_fused
+
+    tiles = corr_fused.bwd_df2_tiles(f1, f2s, coords, RADIUS)
+    tile = sum(int(t.tile_path.sum()) for t in tiles)
+    per_query = sum(int(((t.queries > 0) & ~t.tile_path).sum()) for t in tiles)
+    box_rows = sum(int(((t.x1 - t.x0) * (t.y1 - t.y0))[t.tile_path].sum()) for t in tiles)
+    return {"tile_path": tile, "per_query": per_query,
+            "tile_path_share": tile / max(tile + per_query, 1),
+            "box_rows": box_rows,
+            "per_query_rows": support_taps(coords, [(lvl, f2.shape[1:3])
+                                                    for lvl, f2 in enumerate(f2s)]),
+            "tile_path_share_by_level": [
+                float(t.tile_path.sum()) / max(int((t.queries > 0).sum()), 1) for t in tiles]}
+
+
+def k9_checks(dev, dtype, gen, checks):
+    """K9 on the tile path, against its plain version: smooth coords at the
+    supervised crop's 50x90 at B=1 and B=2 (ragged tiles, tiles of both
+    samples); a mixed case in which some tiles hold a query far out (it
+    leaves the box) or 20 px off (its box exceeds MAX_BOX_TAPS: that tile
+    adds per query), so both paths run in one launch; C = 36 (the scalar
+    path) and C = 320 (two channel chunks). Tolerances as in phase 1's K9."""
+    import torch
+
+    from flow_supervisor_tpu_torch.kernels import corr_fused
+
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    for name, b, c in (("smooth", 1, 256), ("smooth", 2, 256), ("mixed", 2, 256),
+                       ("smooth", 1, 36), ("smooth", 1, 320)):
+        h8, w8 = 50, 90
+        f1 = torch.randn(b, h8, w8, c, generator=gen).to(dev, dtype)
+        f2 = torch.randn(b, h8, w8, c, generator=gen).to(dev, dtype)
+        pyr = corr_fused.build_fused_pyramid(f1, f2, LEVELS)
+        coords = smooth_coords(b, h8, w8, gen, dev)
+        if name == "mixed":
+            coords[::997] = torch.tensor([1e9, -1e9], device=dev)
+            coords[diverging_queries(b, h8, w8)] += torch.tensor([20.0, 20.0], device=dev)
+        paths = k9_paths(pyr.f1, pyr.f2s, coords)
+        if paths["tile_path"] == 0 or (name == "mixed") != (paths["per_query"] > 0):
+            raise AssertionError(f"K9 {name} B={b} C={c}: unexpected paths {paths}")
+        g = torch.randn(b * h8 * w8, LEVELS * K2, generator=gen).to(dev, dtype)
+        got = corr_fused.bwd_df2(pyr.f1, pyr.f2s, coords, g, RADIUS)
+        want = corr_fused.bwd_df2_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g,
+                                        RADIUS)
+        e = max(check_close(f"K9 {name} B={b} C={c} level {lvl} {dtype}", a, w, rtol, 1e-4)
+                for lvl, (a, w) in enumerate(zip(got, want)))
+        checks.append({"kernel": "bwd_df2", "coords": name, "batch": b, "shape": [h8, w8],
+                       "channels": c, "dtype": str(dtype), "err": e,
+                       "tile_path": paths["tile_path"], "per_query": paths["per_query"]})
+
+
 def phase_kernels(dev):
     import torch
 
@@ -497,6 +576,7 @@ def phase_kernels(dev):
             if bf16 and (b, h8) == (1, 50):
                 errs["bwd_df1"], errs["bwd_df2"] = e8, e9
             del pyr, got, want, f1p, f2p
+        k9_checks(dev, dtype, gen, checks)
         # K2: the three stage shapes, a width that is not a multiple of 8 and
         # the KITTI fnet width (155) at C = 96, Cout = 72; bf16 on the
         # tensor-core body, fp32 on the CUDA cores
@@ -1154,35 +1234,50 @@ def phase_train_parity(dev):
             raise AssertionError(f"{kind} train step card-vs-CPU parity failed: {res}")
 
 
-def train_bwd_timing(model, batches, dev):
-    """K8 / K9 against their plain versions on the inputs of the step's last
-    student lookups at the sup (50x90) and unsup (46x96) shapes: ms per step
-    (per-call device time x calls), and the card's least time for them."""
+def bwd_lookup_inputs(model, batch, forward: str = "semi"):
+    """(fused pyramid, coords [B*Q, 2]) of a train step's last student lookup
+    on `batch`: the model's pyramid of the batch's pair and the pixel grid
+    plus the flow before the last iteration, from ``semi_forward``'s student
+    (forward "semi") or the plain forward (the Baseline step's)."""
+    import torch
+
+    from flow_supervisor_tpu_torch.ops.coords import coords_grid
+
+    with torch.no_grad():
+        if forward == "semi":
+            low = model.semi_forward(batch["image1"], batch["image2"], batch["orig_image1"],
+                                     batch["orig_image2"], batch["crop_yx"], use_bw=False,
+                                     teacher_final_only=True, teacher_grad=False)["student_low_fw"]
+        else:
+            low = model(batch["image1"], batch["image2"])["flow_low"]
+        b, h8, w8 = low.shape[1:4]
+        coords = coords_grid(b, h8, w8, device=low.device) + low[-2]
+        pyr = model.build_corr(*model.features(batch["image1"], batch["image2"]))
+    return pyr, coords.reshape(-1, 2).float().contiguous()
+
+
+def train_bwd_timing(model, shapes, dev):
+    """K8 / K9 against their plain versions on the inputs of a step's last
+    student lookups (``bwd_lookup_inputs``) at each of `shapes`, (name, batch,
+    forward, calls per step): ms per step (per-call device time x calls), the
+    card's least time for them and its share, and K9's (level, tile) pairs by
+    path."""
     import torch
 
     from flow_supervisor_tpu_torch.kernels import corr_fused
-    from flow_supervisor_tpu_torch.ops.coords import coords_grid
 
     gen = torch.Generator().manual_seed(8)
     times = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
                  "t_bytes": 0.0, "t_ops": 0.0, "per_call": {}} for n in ("bwd_df1", "bwd_df2")}
-    for (name, batch) in zip(("sup", "unsup"), batches):
-        with torch.no_grad():
-            out = model.semi_forward(batch["image1"], batch["image2"], batch["orig_image1"],
-                                     batch["orig_image2"], batch["crop_yx"], use_bw=False,
-                                     teacher_final_only=True, teacher_grad=False)
-            low = out["student_low_fw"]
-            b, h8, w8 = low.shape[1:4]
-            coords = (coords_grid(b, h8, w8, device=dev) + low[-2]).reshape(-1, 2).float().contiguous()
-            pyr = model.build_corr(*model.features(batch["image1"], batch["image2"]))
+    for name, batch, forward, calls in shapes:
+        pyr, coords = bwd_lookup_inputs(model, batch, forward)
         f1, f2s = pyr.f1, pyr.f2s
         g = torch.randn(coords.shape[0], LEVELS * K2, generator=gen).to(dev, f1.dtype)
-        shapes = [(lvl, tuple(f2.shape[1:3])) for lvl, f2 in enumerate(f2s)]
-        ops = 2 * f1.shape[2] * support_taps(coords, shapes)
+        levels = [(lvl, tuple(f2.shape[1:3])) for lvl, f2 in enumerate(f2s)]
+        ops = 2 * f1.shape[2] * support_taps(coords, levels)
         common = g.numel() * g.element_size() + coords.numel() * 4
         f2_bytes = sum(f2.numel() * f2.element_size() for f2 in f2s)
         f1_bytes = f1.numel() * f1.element_size()
-        calls = TRAIN_BWD_CALLS[name]
         for kname, kernel, plain, nbytes in (
             # K8 reads g, coords and f2, writes d_f1 in f1's dtype
             ("bwd_df1", corr_fused.bwd_df1, corr_fused.bwd_df1_plain, common + f2_bytes + f1_bytes),
@@ -1198,12 +1293,16 @@ def train_bwd_timing(model, batches, dev):
             t["bound_ms"] += calls * max(tb, to)
             t["t_bytes"] += calls * tb
             t["t_ops"] += calls * to
-            t["per_call"][name] = {"queries": coords.shape[0], "calls_per_step": calls, "ms": k,
-                                   "plain_ms": p, "bound_ms": max(tb, to), "bytes": nbytes,
-                                   "ops": ops}
-        del pyr, out
+            t["per_call"][name] = {"batch": f1.shape[0], "queries": coords.shape[0],
+                                   "calls_per_step": calls, "ms": k, "plain_ms": p,
+                                   "bound_ms": max(tb, to), "bound_share": max(tb, to) / k,
+                                   "bytes": nbytes, "ops": ops}
+            if kname == "bwd_df2":
+                t["per_call"][name].update(k9_paths(f1, f2s, coords))
+        del pyr
     for t in times.values():
         t["bound_by"] = "bytes" if t.pop("t_bytes") >= t.pop("t_ops") else "operations"
+        t["bound_share"] = t["bound_ms"] / t["ms"]
     return times
 
 
@@ -1290,7 +1389,8 @@ def phase_train_main(dev):
                recipe_batches(TRAIN_SUP, TRAIN_UNSUP, TRAIN_FULL, gen, (24, 296), (56, 256))]
     got, model, dev_batches, res = train_main(
         dev, "semi", batches, batch=1, sup_hw=TRAIN_SUP, unsup_hw=TRAIN_UNSUP, full_hw=TRAIN_FULL)
-    times = train_bwd_timing(model, dev_batches[0], dev)
+    times = train_bwd_timing(model, [(name, batch, "semi", TRAIN_BWD_CALLS[name])
+                                     for name, batch in zip(("sup", "unsup"), dev_batches[0])], dev)
     for name, t in times.items():
         t["launches"] = got[name]
     res.update(teacher_iters=ITERS, bwd_kernels=times)
@@ -1309,7 +1409,12 @@ def phase_train_main(dev):
         ("unsup", unsup, dict(batch=1, crop_hw=TRAIN_UNSUP, full_hw=TRAIN_FULL)),
         ("baseline", chairs, dict(batch=CHAIRS_BATCH, hw=CHAIRS_HW)),
     ):
-        emit(train_main(dev, kind, bs, **shapes)[3])
+        _, model, dev_batches, res = train_main(dev, kind, bs, **shapes)
+        if kind == "baseline":  # K8 / K9 at B=10 beside the semi step's B=1
+            res["bwd_kernels"] = train_bwd_timing(
+                model, [("chairs", dev_batches[0], "baseline", ITERS)], dev)
+        emit(res)
+        del model, dev_batches
         torch.cuda.empty_cache()
     return got, times
 

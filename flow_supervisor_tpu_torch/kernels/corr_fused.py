@@ -27,7 +27,14 @@ becomes its masked support cotangent / sqrt(C), then
 - ``bwd_df1`` (K8, replaces ``_bwd_df1_kernel``): d_f1[q] = sum over levels
   and support taps of d_sup * f2_l[tap], one launch for all levels;
 - ``bwd_df2`` (K9, replaces ``_bwd_df2_kernel``): d_f2_l[tap] += d_sup *
-  f1[q], one launch for all levels, summed with atomics in fp32.
+  f1[q], one launch for all levels. A block takes a tile of 8x8
+  neighbouring queries at one level, contracts their dense cotangent over
+  the bounding box of their valid taps with the tile's f1 in shared memory
+  (the TPU kernel's ``f1^T . slab``; on the tensor cores for bf16 f1, with
+  the cotangent as a bf16 high and low part), and adds the box into fp32
+  accumulators with one atomic per tap and 4 channels; a tile whose box
+  exceeds ``MAX_BOX_TAPS`` adds per query and tap instead.
+  ``bwd_df2_tiles`` gives each tile's box and path by the kernel's rule.
 
 Each wrapper takes the plain PyTorch version (``corr_fused_plain``: per-level
 fp32 volumes by ``torch.matmul`` over chunks of queries, looked up by
@@ -58,6 +65,9 @@ bwd_df1_launches = 0
 bwd_df2_launches = 0
 
 PLAIN_CHUNK = 2048  # queries per plain matmul chunk: bounds its fp32 volume
+# K9's tiles (csrc/corr_fused_bwd.cu kTileY, kTileX, kMaxBoxTaps)
+TILE_Y, TILE_X = 8, 8
+MAX_BOX_TAPS = 1024
 
 
 class FusedPyramid(NamedTuple):
@@ -226,6 +236,57 @@ def bwd_df2_plain(f1, f2s, coords, g, radius: int = 4) -> list[torch.Tensor]:
     return [d.to(f2.dtype) for d, f2 in zip(d_f2s, f2s)]
 
 
+class TileBoxes(NamedTuple):
+    """K9's tiles at one level, each field [B, tiles_y, tiles_x]: the box
+    [x0, x1) x [y0, y1) of the valid support taps of the tile's queries,
+    clipped to the map (0 where no query has a valid tap), the number of
+    those queries, and whether the tile takes the shared-memory path (it has
+    a query and its box holds at most ``MAX_BOX_TAPS`` taps); the others add
+    per query."""
+
+    x0: torch.Tensor
+    y0: torch.Tensor
+    x1: torch.Tensor
+    y1: torch.Tensor
+    queries: torch.Tensor
+    tile_path: torch.Tensor
+
+
+def bwd_df2_tiles(f1, f2s, coords, radius: int = 4) -> list[TileBoxes]:
+    """Each level's K9 tiles (TILE_Y x TILE_X queries of one sample, the last
+    ones ragged) by the kernel's rule, for f1 [B, Q, C], the pooled f2s and
+    coords [B * Q, 2] at level 0."""
+    b, q, _ = f1.shape
+    h0, w0 = f2s[0].shape[1], f2s[0].shape[2]
+    qh, qw = (h0, w0) if h0 * w0 == q else (1, q)  # the level-0 map, else one row
+    nty, ntx = -(-qh // TILE_Y), -(-qw // TILE_X)
+    sup = 2 * radius + 2
+    big = 2 ** 31 - 1
+    out = []
+    for lvl, f2 in enumerate(f2s):
+        h2, w2 = f2.shape[1], f2.shape[2]
+        fl = torch.floor(coords.float() * (1.0 / 2.0 ** lvl))
+        bx = torch.clamp(fl[:, 0] - radius, -sup, w2).long()
+        by = torch.clamp(fl[:, 1] - radius, -sup, h2).long()
+        x0, x1 = bx.clamp(min=0), (bx + sup).clamp(max=w2)
+        y0, y1 = by.clamp(min=0), (by + sup).clamp(max=h2)
+        valid = (x0 < x1) & (y0 < y1)
+
+        def tiled(v, fill):
+            grid = torch.full((b, nty * TILE_Y, ntx * TILE_X), fill, dtype=torch.long,
+                              device=coords.device)
+            grid[:, :qh, :qw] = torch.where(valid, v, fill).reshape(b, qh, qw)
+            return grid.reshape(b, nty, TILE_Y, ntx, TILE_X)
+
+        n = tiled(torch.ones_like(bx), 0).sum(dim=(2, 4))
+        box = [tiled(x0, big).amin(dim=(2, 4)), tiled(y0, big).amin(dim=(2, 4)),
+               tiled(x1, -big).amax(dim=(2, 4)), tiled(y1, -big).amax(dim=(2, 4))]
+        box = [torch.where(n > 0, v, 0) for v in box]
+        area = (box[2] - box[0]) * (box[3] - box[1])
+        out.append(TileBoxes(*box, n, (n > 0) & (area <= MAX_BOX_TAPS)))
+    return out
+
+
 def _check_bwd_args(what, f1, f2s, coords, g, radius):
     _check_args(what, f1, f2s, coords, radius)
     if not 1 <= len(f2s) <= MAX_LEVELS:
@@ -270,8 +331,9 @@ def bwd_df1(f1, f2s, coords, g, radius: int = 4) -> torch.Tensor:
 
 def bwd_df2(f1, f2s, coords, g, radius: int = 4) -> list[torch.Tensor]:
     """K9: per level d_f2_l [B, h2, w2, C] in f2_l's dtype, all levels in one
-    launch, accumulated with atomics in fp32 buffers that this wrapper zeroes
-    (the order of the sums changes from run to run)."""
+    launch: each tile's box (``bwd_df2_tiles``) is summed in shared memory
+    and added with atomics into fp32 buffers that this wrapper zeroes (the
+    order of the sums changes from run to run)."""
     global bwd_df2_launches
     _check_bwd_args("bwd_df2", f1, f2s, coords, g, radius)
     if not _build.uses_kernel("bwd_df2", f1, coords, g, *f2s):

@@ -97,16 +97,16 @@ class RAFTConfig:
 
 
 _NOT_PORTED = {
-    "small": "the small model (ROADMAP Queue 1, item 6: SmallEncoder / SmallUpdateBlock)",
-    "gma": "GMA (ROADMAP Queue 1, item 5)",
+    "small": "the small model (ROADMAP Queue 1, item 8: SmallEncoder / SmallUpdateBlock)",
+    "gma": "GMA (ROADMAP Queue 1, item 7)",
 }
 # bilinear (non-convex) upsampling comes with the small model, which needs it
 _NOT_PORTED_OFF = {"convex_upsampling": _NOT_PORTED["small"]}
 LOOKUP_BACKENDS = ("plane", "fused", "pallas")
 _NOT_PORTED_BACKENDS = {
-    "auto": "the 'auto' lookup backend (ROADMAP Queue 1, item 3: it needs a GPU rule)",
-    "einsum": "the 'einsum' lookup backend (ROADMAP Queue 1, item 3)",
-    "zero": "the 'zero' lookup ablation (ROADMAP Queue 1, item 3)",
+    "auto": "the 'auto' lookup backend (ROADMAP Queue 1, item 2: it needs a GPU rule)",
+    "einsum": "the 'einsum' lookup backend (ROADMAP Queue 1, item 2)",
+    "zero": "the 'zero' lookup ablation (ROADMAP Queue 1, item 2)",
 }
 
 

@@ -1,7 +1,7 @@
 """Weight transplants between models, on state dicts in memory (counterpart of
 ``initialize_teacher_net`` / ``initialize_from_baseline`` in
 flow_supervisor_tpu/training/checkpoint.py). Checkpoint files are not ported
-yet (ROADMAP Queue 1, item 9)."""
+yet (ROADMAP Queue 1, item 4)."""
 from __future__ import annotations
 
 import torch

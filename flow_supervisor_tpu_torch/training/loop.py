@@ -13,7 +13,7 @@ moves each batch to the device, steps, and every ``log_every`` steps appends
 the log (losses, epe, steps/s) as one JSON row to
 ``<ckpt_dir>/metrics.jsonl``. Batch-norm running statistics live in the
 model's buffers. Checkpoint files and standing validation are not ported
-(ROADMAP Queue 1, item 9). Training runs only through
+(ROADMAP Queue 1, items 3-5). Training runs only through
 ``lookup_backend="fused"``. It runs on the card unless the caller passes
 ``device="cpu"``.
 """
@@ -51,7 +51,7 @@ def build_model(cfg: ExperimentConfig, generator: Optional[torch.Generator] = No
     if mc.dropout != 0.0:
         raise NotImplementedError("ModelCfg(dropout > 0) is not ported yet")
     if mc.model_type.startswith("gma"):
-        raise NotImplementedError("GMA models are not ported yet (ROADMAP Queue 1, item 5)")
+        raise NotImplementedError("GMA models are not ported yet (ROADMAP Queue 1, item 7)")
     rcfg = RAFTConfig(
         small=mc.small,
         iters=mc.iters,

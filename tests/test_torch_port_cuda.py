@@ -156,10 +156,32 @@ def test_cuda_k7_matches_plain(cuda, dtype, c):
     torch.testing.assert_close(got.float(), want, **tol)
 
 
-def _bwd_inputs(b, c, dtype, dev, seed):
+def _bwd_inputs(b, c, dtype, dev, seed, coords_kind="random"):
+    """7x11 maps; coords random (up to 15 px out, one far out) or smooth:
+    the pixel grid plus N(0, 2 px), one far out (every K9 tile takes the
+    shared-memory path at this size)."""
     pyr, coords = _fused_inputs(b, c, dtype, dev, seed)
+    if coords_kind == "smooth":
+        coords = _smooth_coords(b, 7, 11, seed, dev)
+        coords[0] = torch.tensor([1e9, -1e9])
     g = torch.randn(coords.shape[0], 4 * (2 * R + 1) ** 2, generator=torch.Generator().manual_seed(seed))
     return pyr, coords, g.to(dev, dtype)
+
+
+def _smooth_coords(b, h8, w8, seed, dev, sigma=2.0):
+    rng = np.random.default_rng(seed)
+    ys, xs = np.meshgrid(np.arange(h8), np.arange(w8), indexing="ij")
+    grid = np.broadcast_to(np.stack([xs, ys], -1), (b, h8, w8, 2)).reshape(-1, 2)
+    return torch.from_numpy((grid + rng.normal(0, sigma, grid.shape)).astype(np.float32)).to(dev)
+
+
+def _check_k9(pyr, coords, g, dtype):
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
+    got = corr_fused.bwd_df2(pyr.f1, pyr.f2s, coords, g, R)
+    want = corr_fused.bwd_df2_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g, R)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), w, **tol)
 
 
 # B=2 exercises b = q // q_per_b; C=36 the scalar path; C=320 two chunks.
@@ -167,21 +189,64 @@ def _bwd_inputs(b, c, dtype, dev, seed):
 # changes from run to run, by atomics), so rtol 1e-5 of the result plus atol
 # 1e-5; bf16: within 1 bf16 ulp of the plain fp32-accumulated value
 @pytest.mark.cuda
+@pytest.mark.parametrize("coords_kind", ["random", "smooth"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,c", [(1, 64), (2, 64), (2, 36), (1, 320)])
-def test_cuda_k8_k9_match_plain(cuda, dtype, b, c):
-    pyr, coords, g = _bwd_inputs(b, c, dtype, cuda, 15)
+def test_cuda_k8_k9_match_plain(cuda, dtype, b, c, coords_kind):
+    pyr, coords, g = _bwd_inputs(b, c, dtype, cuda, 15, coords_kind)
     tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
     got = corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, R)
     want = corr_fused.bwd_df1_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g, R)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want, **tol)
     assert torch.all(got.reshape(-1, c)[0] == 0)  # the far-out query reads nothing
-    got2 = corr_fused.bwd_df2(pyr.f1, pyr.f2s, coords, g, R)
-    want2 = corr_fused.bwd_df2_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g, R)
-    for a, w in zip(got2, want2):
-        assert a.dtype == dtype
-        torch.testing.assert_close(a.float(), w, **tol)
+    _check_k9(pyr, coords, g, dtype)
+
+
+def _k9_inputs_50x90(b, dtype, dev, seed, coords):
+    rng = np.random.default_rng(seed)
+    f1 = torch.from_numpy(rng.normal(0, 1, (b, 50, 90, 64)).astype(np.float32)).to(dev, dtype)
+    f2 = torch.from_numpy(rng.normal(0, 1, (b, 50, 90, 64)).astype(np.float32)).to(dev, dtype)
+    pyr = corr_fused.build_fused_pyramid(f1, f2, 4)
+    g = torch.from_numpy(rng.normal(0, 1, (b * 4500, 4 * (2 * R + 1) ** 2)).astype(np.float32))
+    return pyr, coords, g.to(dev, dtype)
+
+
+def _paths(pyr, coords):
+    """(tiles on the shared-memory path, tiles adding per query) over all levels."""
+    tiles = corr_fused.bwd_df2_tiles(pyr.f1, pyr.f2s, coords, R)
+    return (sum(int(t.tile_path.sum()) for t in tiles),
+            sum(int(((t.queries > 0) & ~t.tile_path).sum()) for t in tiles))
+
+
+# 50x90 (the supervised crop's level 0), smooth coords, B=2: tiles at the
+# ragged edges and on both samples; queries far out (they leave their tile's
+# box) and queries 20 px off (their tile's box exceeds MAX_BOX_TAPS), so both
+# paths run in one launch
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k9_mixed_tile_and_per_query_paths_match_plain(cuda, dtype):
+    coords = _smooth_coords(2, 50, 90, 40, cuda)
+    coords[::997] = torch.tensor([1e9, -1e9], device=cuda)
+    diverging = [bi * 4500 + qy * 90 + qx for bi in (0, 1) for qy in (12, 24) for qx in (10, 40, 60)]
+    coords[diverging] += 20.0
+    pyr, coords, g = _k9_inputs_50x90(2, dtype, cuda, 41, coords)
+    tile, per_query = _paths(pyr, coords)
+    assert tile > 0 and per_query > 0
+    _check_k9(pyr, coords, g, dtype)
+
+
+# uniform coords over the map and beyond: every level-0 and level-1 tile's
+# box (the whole map) exceeds MAX_BOX_TAPS and adds per query
+@pytest.mark.cuda
+def test_cuda_k9_box_beyond_the_limit_adds_per_query(cuda):
+    rng = np.random.default_rng(42)
+    coords = torch.from_numpy(np.stack([rng.uniform(-20, 110, 4500), rng.uniform(-20, 70, 4500)], 1)
+                              .astype(np.float32)).to(cuda)
+    pyr, coords, g = _k9_inputs_50x90(1, torch.float32, cuda, 43, coords)
+    tiles = corr_fused.bwd_df2_tiles(pyr.f1, pyr.f2s, coords, R)
+    assert not bool(tiles[0].tile_path.any()) and not bool(tiles[1].tile_path.any())
+    _check_k9(pyr, coords, g, torch.float32)
 
 
 @pytest.mark.cuda
