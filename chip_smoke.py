@@ -18,10 +18,11 @@ each printing one JSON line per check or configuration:
    window) on the card against their plain PyTorch versions at the main
    paths' shapes and ragged ones, fp32 (TF32 off) and bf16, with lookup
    coords in bounds, partly out and far out of bounds; K1 also at radius 1
-   and 3, B=2, one level, and launched twice (bit-identical outputs); K9
-   also at smooth coords (the pixel grid plus N(0, 2 px), its tile path),
-   B=1 and 2, C = 36, 256 and 320, and mixed with queries that send their
-   tile to the per-query path;
+   and 3, B=2, one level, and launched twice (bit-identical outputs); K6/K7
+   and K9 also at smooth coords (the pixel grid plus N(0, 2 px), their tile
+   path), B=1 and 2 (K7 also 8), C = 36, 256 and 320, and mixed with
+   queries that send their tile to the per-query path, each case with its
+   (level, tile) pairs by path;
 2. parity: a 216x512, 12-iteration fp32 forward on the card (kernels) against
    the same model and weights on the CPU (plain versions), for each lookup
    backend (plane, fused, pallas);
@@ -433,25 +434,73 @@ def diverging_queries(b, h8, w8):
             for bi in range(b) for qy in (12, 24) for qx in (10, 40, 60)]
 
 
-def k9_paths(f1, f2s, coords) -> dict:
-    """K9's (level, tile) pairs by path (``bwd_df2_tiles``): how many take
-    the shared-memory tile path, how many add per query, the tile path's
-    share of the pairs with a valid query, and the rows (taps of C channels)
-    that the tile path's boxes add against those that one add per query and
-    valid tap (the first K9) would."""
+def tile_paths(f1, f2s, coords) -> dict:
+    """The (level, tile) pairs of K6 / K7 and K9 by path (``lookup_tiles``):
+    in all and per level, how many take the shared-memory tile path and how
+    many go per query (a tile with no valid query takes neither), the tile
+    path's share of the pairs with a valid query, and the rows (taps of C
+    channels) that the tile path's boxes read or add against those that one
+    read or add per query and valid tap (the first K6 / K7 and K9) would."""
     from flow_supervisor_tpu_torch.kernels import corr_fused
 
-    tiles = corr_fused.bwd_df2_tiles(f1, f2s, coords, RADIUS)
-    tile = sum(int(t.tile_path.sum()) for t in tiles)
-    per_query = sum(int(((t.queries > 0) & ~t.tile_path).sum()) for t in tiles)
+    tiles = corr_fused.lookup_tiles(f1, f2s, coords, RADIUS)
+    tile_by = [int(t.tile_path.sum()) for t in tiles]
+    per_query_by = [int(((t.queries > 0) & ~t.tile_path).sum()) for t in tiles]
+    tile, per_query = sum(tile_by), sum(per_query_by)
     box_rows = sum(int(((t.x1 - t.x0) * (t.y1 - t.y0))[t.tile_path].sum()) for t in tiles)
     return {"tile_path": tile, "per_query": per_query,
             "tile_path_share": tile / max(tile + per_query, 1),
             "box_rows": box_rows,
             "per_query_rows": support_taps(coords, [(lvl, f2.shape[1:3])
                                                     for lvl, f2 in enumerate(f2s)]),
-            "tile_path_share_by_level": [
-                float(t.tile_path.sum()) / max(int((t.queries > 0).sum()), 1) for t in tiles]}
+            "tile_path_by_level": tile_by, "per_query_by_level": per_query_by,
+            "tile_path_share_by_level": [t / max(t + p, 1) for t, p in zip(tile_by, per_query_by)]}
+
+
+def k6_k7_checks(dev, dtype, gen, checks):
+    """K6 (B=1) and K7 (B>1) at the main 56x128 shape against their plain
+    version, beside the uniform coords of phase 1: smooth coords (the pixel
+    grid plus N(0, 2 px)), where every tile takes the tile path, at B = 1, 2
+    and 8; mixed ones, in which some tiles hold a query far out (it leaves
+    the box) or 20 px off (its tile's box exceeds MAX_BOX_TAPS: that tile
+    goes per query), so both paths run in one launch, at B = 1 and 2; C = 36
+    (the CUDA-core body with scalar loads) and C = 320 (two channel chunks),
+    smooth, at B = 1 and 2. fp32: sums of C products in another order (rtol
+    1e-5, atol 1e-5); bf16: within one bf16 ulp of the plain fp32 value."""
+    import torch
+
+    from flow_supervisor_tpu_torch.kernels import corr_fused
+
+    rtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    h8, w8 = MAIN_HW[0] // 8, MAIN_HW[1] // 8
+    for name, b, c in (("smooth", 1, 256), ("smooth", 2, 256), ("smooth", 8, 256),
+                       ("mixed", 1, 256), ("mixed", 2, 256), ("smooth", 1, 36), ("smooth", 2, 36),
+                       ("smooth", 1, 320), ("smooth", 2, 320)):
+        f1 = torch.randn(b, h8, w8, c, generator=gen).to(dev, dtype)
+        f2 = torch.randn(b, h8, w8, c, generator=gen).to(dev, dtype)
+        pyr = corr_fused.build_fused_pyramid(f1, f2, LEVELS)
+        coords = smooth_coords(b, h8, w8, gen, dev)
+        if name == "mixed":
+            coords[::997] = torch.tensor([1e9, -1e9], device=dev)
+            coords[diverging_queries(b, h8, w8)] += torch.tensor([20.0, 20.0], device=dev)
+        paths = tile_paths(pyr.f1, pyr.f2s, coords)
+        kname = "K6" if b == 1 else "K7"
+        if paths["tile_path"] == 0 or (name == "mixed") != (paths["per_query"] > 0):
+            raise AssertionError(f"{kname} {name} B={b} C={c}: unexpected paths {paths}")
+        if b == 1:
+            got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, RADIUS, dtype)
+        else:  # NaN until written: a channel no launch writes fails the check
+            got = torch.full((coords.shape[0], LEVELS * K2), float("nan"), device=dev, dtype=dtype)
+            for lvl, f2l in enumerate(pyr.f2s):
+                corr_fused.corr_fused_level(pyr.f1, f2l, lvl, coords, RADIUS, got, (h8, w8))
+        want = corr_fused.corr_fused_plain(pyr.f1, pyr.f2s, coords, RADIUS, torch.float32)
+        e = check_close(f"{kname} {name} B={b} C={c} {dtype}", got, want, rtol, 1e-5)
+        checks.append({"kernel": "corr_fused_all" if b == 1 else "corr_fused_level",
+                       "coords": name, "batch": b, "shape": [h8, w8], "channels": c,
+                       "dtype": str(dtype), "err": e,
+                       "tile_path_by_level": paths["tile_path_by_level"],
+                       "per_query_by_level": paths["per_query_by_level"]})
+        del f1, f2, pyr, got, want
 
 
 def k9_checks(dev, dtype, gen, checks):
@@ -476,7 +525,7 @@ def k9_checks(dev, dtype, gen, checks):
         if name == "mixed":
             coords[::997] = torch.tensor([1e9, -1e9], device=dev)
             coords[diverging_queries(b, h8, w8)] += torch.tensor([20.0, 20.0], device=dev)
-        paths = k9_paths(pyr.f1, pyr.f2s, coords)
+        paths = tile_paths(pyr.f1, pyr.f2s, coords)
         if paths["tile_path"] == 0 or (name == "mixed") != (paths["per_query"] > 0):
             raise AssertionError(f"K9 {name} B={b} C={c}: unexpected paths {paths}")
         g = torch.randn(b * h8 * w8, LEVELS * K2, generator=gen).to(dev, dtype)
@@ -533,8 +582,11 @@ def phase_kernels(dev):
             got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, RADIUS, dtype)
             want = corr_fused.corr_fused_plain(pyr.f1, pyr.f2s, coords, RADIUS, torch.float32)
             e = check_close(f"K6 {h8}x{w8} {dtype}", got, want, rtol or 1e-5, 1e-5)
-            checks.append({"kernel": "corr_fused_all", "shape": [h8, w8], "dtype": str(dtype),
-                           "err": e})
+            paths = tile_paths(pyr.f1, pyr.f2s, coords)
+            checks.append({"kernel": "corr_fused_all", "coords": "uniform", "shape": [h8, w8],
+                           "dtype": str(dtype), "err": e,
+                           "tile_path_by_level": paths["tile_path_by_level"],
+                           "per_query_by_level": paths["per_query_by_level"]})
             if bf16 and main:
                 errs["corr_fused_all"] = e
         # K7: B=1 and B=8 at the main shape, B=8 at the ragged one
@@ -544,13 +596,17 @@ def phase_kernels(dev):
             pyr = corr_fused.build_fused_pyramid(f1, f2, LEVELS)
             got = torch.full((coords.shape[0], LEVELS * K2), float("nan"), device=dev, dtype=dtype)
             for lvl, f2l in enumerate(pyr.f2s):
-                corr_fused.corr_fused_level(pyr.f1, f2l, lvl, coords, RADIUS, got)
+                corr_fused.corr_fused_level(pyr.f1, f2l, lvl, coords, RADIUS, got, (h8, w8))
             want = corr_fused.corr_fused_plain(pyr.f1, pyr.f2s, coords, RADIUS, torch.float32)
             e = check_close(f"K7 B={b} {h8}x{w8} {dtype}", got, want, rtol or 1e-5, 1e-5)
-            checks.append({"kernel": "corr_fused_level", "batch": b, "shape": [h8, w8],
-                           "dtype": str(dtype), "err": e})
+            paths = tile_paths(pyr.f1, pyr.f2s, coords)
+            checks.append({"kernel": "corr_fused_level", "coords": "uniform", "batch": b,
+                           "shape": [h8, w8], "dtype": str(dtype), "err": e,
+                           "tile_path_by_level": paths["tile_path_by_level"],
+                           "per_query_by_level": paths["per_query_by_level"]})
             if bf16 and b == 8 and (h8, w8) == main8:
                 errs["corr_fused_level"] = e
+        k6_k7_checks(dev, dtype, gen, checks)
         # K8 / K9 at the recipe's student level-0 shapes: 50x90 (400x720 crop)
         # at B=1 and B=2 (4,500 queries a sample: blocks straddle samples) and
         # 46x96 (368x768). fp32: sums of up to 400 (K8) and several thousand
@@ -720,6 +776,7 @@ def lookup_timing(backend, batch, pyramid, coords, dev):
     name = LOOKUP_KERNEL[(backend, batch)]
     out_bytes = bq * LEVELS * K2 * 2
     library_ms = None
+    extra = {}
     if backend == "plane":
         planes = pyramid
         shapes = [(lvl, tuple(p.shape[1:])) for lvl, p in enumerate(planes)]
@@ -748,7 +805,7 @@ def lookup_timing(backend, batch, pyramid, coords, dev):
 
             def kernel():
                 for lvl, f2 in enumerate(f2s):
-                    corr_fused.corr_fused_level(f1, f2, lvl, coords, RADIUS, out)
+                    corr_fused.corr_fused_level(f1, f2, lvl, coords, RADIUS, out, shapes[0][1])
 
             def plain():
                 for lvl, f2 in enumerate(f2s):
@@ -761,6 +818,7 @@ def lookup_timing(backend, batch, pyramid, coords, dev):
         ops = 2 * c * support_taps(coords, shapes) + bq * LEVELS * K2 * COMBINE_FLOPS
         in_dtype = f1.dtype
         library_err = None
+        extra["tile_paths"] = tile_paths(f1, f2s, coords)
     else:  # pallas
         planes = pyramid
         shapes = [(lvl, tuple(p.shape[1:])) for lvl, p in enumerate(planes)]
@@ -779,7 +837,7 @@ def lookup_timing(backend, batch, pyramid, coords, dev):
                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                   "share_of_bound": bound_ms / (k * ITERS),
                   "library_share_of_bound": None if library_ms is None else bound_ms / library_ms,
-                  "bytes_per_call": nbytes, "ops_per_call": ops}
+                  "bytes_per_call": nbytes, "ops_per_call": ops, **extra}
 
 
 def encoder_timing(dev):
@@ -1298,7 +1356,7 @@ def train_bwd_timing(model, shapes, dev):
                                    "bound_ms": max(tb, to), "bound_share": max(tb, to) / k,
                                    "bytes": nbytes, "ops": ops}
             if kname == "bwd_df2":
-                t["per_call"][name].update(k9_paths(f1, f2s, coords))
+                t["per_call"][name].update(tile_paths(f1, f2s, coords))
         del pyr
     for t in times.values():
         t["bound_by"] = "bytes" if t.pop("t_bytes") >= t.pop("t_ops") else "operations"

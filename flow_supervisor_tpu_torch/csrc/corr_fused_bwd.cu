@@ -68,6 +68,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "tiles.cuh"
 
 namespace {
 
@@ -79,24 +80,6 @@ struct Levels {
   int h2[kMaxLevels];
   int w2[kMaxLevels];
 };
-
-// The window of one query at one level: base (clamped) and fractional part.
-struct Window {
-  int bx, by;
-  float fx, fy;
-};
-
-__device__ __forceinline__ Window window_at(float cx, float cy, int radius, int h2, int w2) {
-  const int sp = 2 * radius + 2;
-  const float flx = floorf(cx);
-  const float fly = floorf(cy);
-  Window w;
-  w.fx = cx - flx;
-  w.fy = cy - fly;
-  w.bx = (int)fminf(fmaxf(flx - radius, -(float)sp), (float)w2);
-  w.by = (int)fminf(fmaxf(fly - radius, -(float)sp), (float)h2);
-  return w;
-}
 
 // Window cotangent at dy index iy, dx index ix (channel ix*k + iy); 0 outside.
 template <typename TG>
@@ -257,19 +240,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 // ---- K9 ----
 
-constexpr int kTileY = 8;          // a block's queries: kTileY x kTileX neighbours of one sample
-constexpr int kTileX = 8;
 constexpr int kBoxChunk = 64;      // box taps per contraction pass: 8 per warp
-constexpr int kMaxBoxTaps = 1024;  // larger boxes take the per-query body
 constexpr int kChunkC = 256;       // channels of f1 staged at a time
 constexpr int kThreads = kWarps * 32;
-
-// The queries of one sample as a qh x qw grid: the level-0 map when it holds
-// q_per_b queries (f1 and f2 come from one feature-map size), else one row;
-// cut into tiles_y x tiles_x tiles, the last ones ragged.
-struct QueryGrid {
-  int qh, qw, tiles_y, tiles_x;
-};
 
 // A block's tile at one level: its valid queries (a window tap inside the
 // map) and the box [x0, x0 + bw) x [y0, y0 + bh) of their valid taps.
@@ -553,33 +526,6 @@ constexpr int kTcQueries = 64;
 constexpr int kTcF1Stride = kChunkC + 8;  // bf16; ldmatrix's 8 rows on distinct banks
 constexpr int kTcDStride = kTcQueries + 8;
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(const __nv_bfloat16* p, unsigned r[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(const __nv_bfloat16* p, unsigned r[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ void tile_contract_tc(const __nv_bfloat16* __restrict__ f1, float* __restrict__ accb,
                                  const TileBox& box, const TileQueries& sq, float* smem, int C,
                                  int radius) {
@@ -729,31 +675,6 @@ cudaError_t launch_df1(const Levels& lv, int levels, const float* coords, const 
       lv, levels, coords, static_cast<const TG*>(g), static_cast<TIn*>(d_f1), bq, q_per_b, C,
       radius);
   return cudaGetLastError();
-}
-
-template <int TY, int TX>
-QueryGrid query_grid(int q_per_b, int h0, int w0) {
-  QueryGrid grid;
-  grid.qh = (long)h0 * w0 == q_per_b ? h0 : 1;
-  grid.qw = (long)h0 * w0 == q_per_b ? w0 : q_per_b;
-  grid.tiles_y = (grid.qh + TY - 1) / TY;
-  grid.tiles_x = (grid.qw + TX - 1) / TX;
-  return grid;
-}
-
-// Opt a kernel into `bytes` of dynamic shared memory; refuses (before any
-// launch) a size beyond what the card gives a block.
-inline cudaError_t allow_smem(const void* kernel, long bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  int optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  if (err != cudaSuccess) return err;
-  if (bytes > optin) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 // K9 over levels [level0, level1) of the `levels` in g's rows; bf16 f1 with

@@ -39,12 +39,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     # planes[L], h2[L], w2[L], levels, coords, out, bq, radius, in_dtype, out_dtype, stream
     "fst_corr_plane_lookup": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
-    # f1, f2[L], h2[L], w2[L], levels, coords, out, bq, q_per_b, C, radius, in_dtype,
-    # out_dtype, stream
-    "fst_corr_fused_all": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # f1, f2, h2, w2, level, coords, out, out_stride, bq, q_per_b, C, radius, in_dtype,
-    # out_dtype, stream
-    "fst_corr_fused_level": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # f1, f2[L], h2[L], w2[L], levels, h1, w1 (the queries' grid), coords, out, bq, q_per_b,
+    # C, radius, in_dtype, out_dtype, stream
+    "fst_corr_fused_all": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # f1, f2, h2, w2, level, h1, w1, coords, out, out_stride, bq, q_per_b, C, radius,
+    # in_dtype, out_dtype, stream
+    "fst_corr_fused_level": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _P],
     # f2[L], h2[L], w2[L], levels, coords, g, d_f1, bq, q_per_b, C, radius, in_dtype (f1's),
     # g_dtype, stream
     "fst_corr_fused_bwd_df1": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

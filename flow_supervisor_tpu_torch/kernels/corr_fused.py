@@ -16,6 +16,14 @@ requested dtype (csrc/corr_fused.cu).
 - B > 1: one launch per level, each writing its channel stripe
   (``corr_fused_level``, K7, replaces ``_fused_level_kernel``).
 
+Both take the queries as their (h1, w1) grid, cut into tiles of
+TILE_Y x TILE_X neighbours; a block takes one tile at one level, stages the
+tile's f1 rows and, pass by pass, the f2 rows of the bounding box of the
+tile's valid support taps, and takes their dense product (on the tensor
+cores for bf16 f1), from which each query picks its support; a tile whose
+box exceeds ``MAX_BOX_TAPS`` computes per query instead. ``lookup_tiles``
+gives each tile's box and path by the kernels' rule.
+
 The TPU layout (grouped f2 factors, 128-lane and query padding, SMEM index
 planes, one-hot combine matrices) and its VMEM-budget fallback are not
 carried over.
@@ -27,14 +35,13 @@ becomes its masked support cotangent / sqrt(C), then
 - ``bwd_df1`` (K8, replaces ``_bwd_df1_kernel``): d_f1[q] = sum over levels
   and support taps of d_sup * f2_l[tap], one launch for all levels;
 - ``bwd_df2`` (K9, replaces ``_bwd_df2_kernel``): d_f2_l[tap] += d_sup *
-  f1[q], one launch for all levels. A block takes a tile of 8x8
-  neighbouring queries at one level, contracts their dense cotangent over
-  the bounding box of their valid taps with the tile's f1 in shared memory
-  (the TPU kernel's ``f1^T . slab``; on the tensor cores for bf16 f1, with
-  the cotangent as a bf16 high and low part), and adds the box into fp32
-  accumulators with one atomic per tap and 4 channels; a tile whose box
-  exceeds ``MAX_BOX_TAPS`` adds per query and tap instead.
-  ``bwd_df2_tiles`` gives each tile's box and path by the kernel's rule.
+  f1[q], one launch for all levels. A block takes a tile of neighbouring
+  queries at one level (the forward's tiles), contracts their dense
+  cotangent over the bounding box of their valid taps with the tile's f1 in
+  shared memory (the TPU kernel's ``f1^T . slab``; on the tensor cores for
+  bf16 f1, with the cotangent as a bf16 high and low part), and adds the box
+  into fp32 accumulators with one atomic per tap and 4 channels; a tile
+  whose box exceeds ``MAX_BOX_TAPS`` adds per query and tap instead.
 
 Each wrapper takes the plain PyTorch version (``corr_fused_plain``: per-level
 fp32 volumes by ``torch.matmul`` over chunks of queries, looked up by
@@ -65,7 +72,7 @@ bwd_df1_launches = 0
 bwd_df2_launches = 0
 
 PLAIN_CHUNK = 2048  # queries per plain matmul chunk: bounds its fp32 volume
-# K9's tiles (csrc/corr_fused_bwd.cu kTileY, kTileX, kMaxBoxTaps)
+# the tiles of K6 / K7 and K9 (csrc/tiles.cuh kTileY, kTileX, kMaxBoxTaps)
 TILE_Y, TILE_X = 8, 8
 MAX_BOX_TAPS = 1024
 
@@ -137,7 +144,9 @@ def corr_fused_all(
     f1: torch.Tensor, f2s: list[torch.Tensor], coords: torch.Tensor, radius: int = 4,
     out_dtype=torch.float32,
 ) -> torch.Tensor:
-    """K6: all levels in one launch -> [B * Q, L * (2r+1)^2] in out_dtype."""
+    """K6: all levels in one launch -> [B * Q, L * (2r+1)^2] in out_dtype. The
+    queries' grid is the level-0 map f2s[0] when it holds the Q queries, else
+    one row."""
     global all_launches
     _check_args("corr_fused_all", f1, f2s, coords, radius)
     if not 1 <= len(f2s) <= MAX_LEVELS:
@@ -147,15 +156,11 @@ def corr_fused_all(
     b, q, c = f1.shape
     nl = len(f2s)
     out = torch.empty((b * q, nl * (2 * radius + 1) ** 2), dtype=out_dtype, device=f1.device)
-    ptrs = (ctypes.c_void_p * nl)(*[f2.data_ptr() for f2 in f2s])
-    h2s = (ctypes.c_int * nl)(*[f2.shape[1] for f2 in f2s])
-    w2s = (ctypes.c_int * nl)(*[f2.shape[2] for f2 in f2s])
     with torch.cuda.device(f1.device):
         rc = _build.lib().fst_corr_fused_all(
-            f1.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(h2s, ctypes.c_void_p),
-            ctypes.cast(w2s, ctypes.c_void_p), nl, coords.data_ptr(), out.data_ptr(),
-            b * q, q, c, radius, _build.dtype_code(f1), _build.dtype_code(out),
-            _build.stream_of(f1),
+            f1.data_ptr(), *_level_arrays([f2.data_ptr() for f2 in f2s], f2s), nl,
+            f2s[0].shape[1], f2s[0].shape[2], coords.data_ptr(), out.data_ptr(), b * q, q, c,
+            radius, _build.dtype_code(f1), _build.dtype_code(out), _build.stream_of(f1),
         )
     _build.check(rc, "corr_fused_all")
     all_launches += 1
@@ -164,10 +169,13 @@ def corr_fused_all(
 
 def corr_fused_level(
     f1: torch.Tensor, f2: torch.Tensor, level: int, coords: torch.Tensor, radius: int,
-    out: torch.Tensor,
+    out: torch.Tensor, query_hw: tuple[int, int] | None = None,
 ) -> None:
     """K7: level ``level`` (f2 pooled by 2^level) into channels
-    [level * (2r+1)^2, (level+1) * (2r+1)^2) of out [B * Q, >= that]."""
+    [level * (2r+1)^2, (level+1) * (2r+1)^2) of out [B * Q, >= that].
+    query_hw: the queries' (h1, w1) grid, the level-0 map; None, or a grid
+    that does not hold the Q queries, takes them as one row (right, but its
+    tiles share fewer support taps)."""
     global level_launches
     _check_args("corr_fused_level", f1, [f2], coords, radius)
     k2 = (2 * radius + 1) ** 2
@@ -184,11 +192,12 @@ def corr_fused_level(
         )
         return
     b, q, c = f1.shape
+    h1, w1 = query_hw or (1, q)
     with torch.cuda.device(f1.device):
         rc = _build.lib().fst_corr_fused_level(
-            f1.data_ptr(), f2.data_ptr(), f2.shape[1], f2.shape[2], level, coords.data_ptr(),
-            out.data_ptr(), out.shape[1], b * q, q, c, radius, _build.dtype_code(f1),
-            _build.dtype_code(out), _build.stream_of(f1),
+            f1.data_ptr(), f2.data_ptr(), f2.shape[1], f2.shape[2], level, h1, w1,
+            coords.data_ptr(), out.data_ptr(), out.shape[1], b * q, q, c, radius,
+            _build.dtype_code(f1), _build.dtype_code(out), _build.stream_of(f1),
         )
     _build.check(rc, "corr_fused_level")
     level_launches += 1
@@ -237,11 +246,11 @@ def bwd_df2_plain(f1, f2s, coords, g, radius: int = 4) -> list[torch.Tensor]:
 
 
 class TileBoxes(NamedTuple):
-    """K9's tiles at one level, each field [B, tiles_y, tiles_x]: the box
+    """The tiles of K6 / K7 and K9 at one level, each field [B, tiles_y, tiles_x]: the box
     [x0, x1) x [y0, y1) of the valid support taps of the tile's queries,
     clipped to the map (0 where no query has a valid tap), the number of
     those queries, and whether the tile takes the shared-memory path (it has
-    a query and its box holds at most ``MAX_BOX_TAPS`` taps); the others add
+    a query and its box holds at most ``MAX_BOX_TAPS`` taps); the others go
     per query."""
 
     x0: torch.Tensor
@@ -252,10 +261,10 @@ class TileBoxes(NamedTuple):
     tile_path: torch.Tensor
 
 
-def bwd_df2_tiles(f1, f2s, coords, radius: int = 4) -> list[TileBoxes]:
-    """Each level's K9 tiles (TILE_Y x TILE_X queries of one sample, the last
-    ones ragged) by the kernel's rule, for f1 [B, Q, C], the pooled f2s and
-    coords [B * Q, 2] at level 0."""
+def lookup_tiles(f1, f2s, coords, radius: int = 4) -> list[TileBoxes]:
+    """Each level's tiles of K6 / K7 and K9 (TILE_Y x TILE_X queries of one
+    sample, the last ones ragged) by the kernels' rule, for f1 [B, Q, C], the
+    pooled f2s and coords [B * Q, 2] at level 0."""
     b, q, _ = f1.shape
     h0, w0 = f2s[0].shape[1], f2s[0].shape[2]
     qh, qw = (h0, w0) if h0 * w0 == q else (1, q)  # the level-0 map, else one row
@@ -331,7 +340,7 @@ def bwd_df1(f1, f2s, coords, g, radius: int = 4) -> torch.Tensor:
 
 def bwd_df2(f1, f2s, coords, g, radius: int = 4) -> list[torch.Tensor]:
     """K9: per level d_f2_l [B, h2, w2, C] in f2_l's dtype, all levels in one
-    launch: each tile's box (``bwd_df2_tiles``) is summed in shared memory
+    launch: each tile's box (``lookup_tiles``) is summed in shared memory
     and added with atomics into fp32 buffers that this wrapper zeroes (the
     order of the sums changes from run to run)."""
     global bwd_df2_launches
@@ -366,7 +375,7 @@ class _FusedLookup(torch.autograd.Function):
         k2 = (2 * radius + 1) ** 2
         out = torch.empty((flat.shape[0], len(f2s) * k2), dtype=out_dtype, device=flat.device)
         for lvl, f2 in enumerate(f2s):
-            corr_fused_level(f1, f2, lvl, flat, radius, out)
+            corr_fused_level(f1, f2, lvl, flat, radius, out, tuple(f2s[0].shape[1:3]))
         return out
 
     @staticmethod

@@ -156,6 +156,68 @@ def test_cuda_k7_matches_plain(cuda, dtype, c):
     torch.testing.assert_close(got.float(), want, **tol)
 
 
+def _tile_case(b, c, dtype, dev, coords_kind, seed):
+    """A 50x90 query grid (ragged 8x8 tiles) and its pyramid; coords smooth
+    (the pixel grid plus N(0, 2 px): every tile takes the box path), random
+    (uniform over the map and 15 px beyond: level-0 boxes exceed
+    MAX_BOX_TAPS and go per query), far (random, some queries far out) or
+    mixed (smooth, with queries far out and six a sample 20 px off, some of
+    whose tiles go per query)."""
+    h8, w8 = 50, 90
+    f1, f2, coords = _lookup_inputs(b=b, h8=h8, w8=w8, c=c, seed=seed)
+    pyr = corr_fused.build_fused_pyramid(
+        torch.from_numpy(f1).to(dev, dtype), torch.from_numpy(f2).to(dev, dtype), 4
+    )
+    coords = torch.from_numpy(coords).reshape(-1, 2).to(dev)
+    if coords_kind in ("smooth", "mixed"):
+        coords = _smooth_coords(b, h8, w8, seed, dev)
+    if coords_kind in ("far", "mixed"):
+        coords[::997] = torch.tensor([1e9, -1e9], device=dev)
+        coords[-1] = torch.tensor([-3e38, 3e38], device=dev)
+    if coords_kind == "mixed":
+        diverging = [bi * h8 * w8 + qy * w8 + qx
+                     for bi in range(b) for qy in (12, 24) for qx in (10, 40, 60)]
+        coords[diverging] += 20.0
+    return pyr, coords.contiguous()
+
+
+# K6 (B=1, one launch) and K7 (B=2 and 8, one launch per level) on both
+# paths; C=36: the CUDA-core body with scalar loads, C=256: bf16 on the
+# tensor cores, fp32 on the CUDA cores, C=320: two channel chunks. fp32:
+# sums of C products in another order (rtol 1e-5, atol 1e-5); bf16: within
+# 1 bf16 ulp of the plain fp32 value
+@pytest.mark.cuda
+@pytest.mark.parametrize("coords_kind", ["smooth", "random", "far", "mixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("c", [36, 256, 320])
+def test_cuda_k6_k7_tile_and_per_query_paths_match_plain(cuda, coords_kind, dtype, b, c):
+    pyr, coords = _tile_case(b, c, dtype, cuda, coords_kind, 50 + b + c)
+    tile, per_query = _paths(pyr, coords)
+    assert tile > 0 and (per_query > 0) == (coords_kind != "smooth")
+    k2 = (2 * R + 1) ** 2
+    if b == 1:
+        got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, R, dtype)
+    else:
+        got = torch.full((coords.shape[0], 4 * k2), float("nan"), device=cuda, dtype=dtype)
+        for lvl, f2 in enumerate(pyr.f2s):
+            corr_fused.corr_fused_level(pyr.f1, f2, lvl, coords, R, got, (50, 90))
+    want = corr_fused.corr_fused_plain(pyr.f1, pyr.f2s, coords, R, torch.float32)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want, **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_lookup_launches_k7_per_level_on_the_query_grid(cuda):
+    pyr, coords = _tile_case(2, 64, torch.float32, cuda, "smooth", 60)
+    n6, n7 = corr_fused.all_launches, corr_fused.level_launches
+    out = corr_fused.corr_pyramid_lookup_fused(pyr, coords.reshape(2, 50, 90, 2), R)
+    assert (corr_fused.all_launches - n6, corr_fused.level_launches - n7) == (0, 4)
+    want = corr_fused.corr_fused_plain(pyr.f1, pyr.f2s, coords, R, torch.float32)
+    torch.testing.assert_close(out.reshape(want.shape), want, atol=1e-5, rtol=1e-5)
+
+
 def _bwd_inputs(b, c, dtype, dev, seed, coords_kind="random"):
     """7x11 maps; coords random (up to 15 px out, one far out) or smooth:
     the pixel grid plus N(0, 2 px), one far out (every K9 tile takes the
@@ -214,7 +276,7 @@ def _k9_inputs_50x90(b, dtype, dev, seed, coords):
 
 def _paths(pyr, coords):
     """(tiles on the shared-memory path, tiles adding per query) over all levels."""
-    tiles = corr_fused.bwd_df2_tiles(pyr.f1, pyr.f2s, coords, R)
+    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R)
     return (sum(int(t.tile_path.sum()) for t in tiles),
             sum(int(((t.queries > 0) & ~t.tile_path).sum()) for t in tiles))
 
@@ -244,7 +306,7 @@ def test_cuda_k9_box_beyond_the_limit_adds_per_query(cuda):
     coords = torch.from_numpy(np.stack([rng.uniform(-20, 110, 4500), rng.uniform(-20, 70, 4500)], 1)
                               .astype(np.float32)).to(cuda)
     pyr, coords, g = _k9_inputs_50x90(1, torch.float32, cuda, 43, coords)
-    tiles = corr_fused.bwd_df2_tiles(pyr.f1, pyr.f2s, coords, R)
+    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R)
     assert not bool(tiles[0].tile_path.any()) and not bool(tiles[1].tile_path.any())
     _check_k9(pyr, coords, g, torch.float32)
 

@@ -1,7 +1,7 @@
 """K9's tile algorithm (csrc/corr_fused_bwd.cu), replayed in PyTorch on the CPU.
 
 The kernel has no CPU mode, so this file holds its arithmetic: each level's
-tiles of 8x8 neighbouring queries (``corr_fused.bwd_df2_tiles``), the dense
+tiles of 8x8 neighbouring queries (``corr_fused.lookup_tiles``), the dense
 cotangent D [queries, box taps] of a tile that takes the shared-memory path
 and its product D^T . f1_tile added over the box, and the per-query adds of a
 tile whose box is too large. The replay must equal ``bwd_df2_plain`` up to
@@ -78,7 +78,7 @@ def _replay(f1, f2s, coords, g):
     rows = f1.reshape(b * q, c)
     uu, vv = torch.meshgrid(torch.arange(SUP), torch.arange(SUP), indexing="ij")
     out = []
-    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.bwd_df2_tiles(f1, f2s, coords, R))):
+    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, R))):
         h2, w2 = f2.shape[1], f2.shape[2]
         acc = torch.zeros(f2.shape, dtype=torch.float32)
         bx, by, valid, dsup = _level_supports(f1, f2, coords, g, lvl)
@@ -122,7 +122,7 @@ def test_k9_tile_replay_matches_plain(b, kind, hw):
     for lvl, (a, wl) in enumerate(zip(got, want)):
         atol = 1e-5 if hw == (13, 21) else 1e-5 + 1e-6 * float(wl.abs().max())
         torch.testing.assert_close(a, wl, atol=atol, rtol=0, msg=f"level {lvl}")
-    tiles = corr_fused.bwd_df2_tiles(f1, f2s, coords, R)
+    tiles = corr_fused.lookup_tiles(f1, f2s, coords, R)
     if hw == (40, 48):  # both paths run
         assert not tiles[0].tile_path[tiles[0].queries > 0].all()
         assert tiles[3].tile_path.any()
@@ -134,7 +134,7 @@ def test_k9_tile_replay_matches_plain(b, kind, hw):
 def test_k9_tile_boxes_hold_every_tap_and_stay_in_the_map(b, kind, hw):
     f1, f2s, coords, g = _inputs(b, *hw, c=8, kind=kind, seed=b + 10 * len(kind) + hw[0])
     h, w = hw
-    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.bwd_df2_tiles(f1, f2s, coords, R))):
+    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, R))):
         h2, w2 = f2.shape[1], f2.shape[2]
         bx, by, valid, _ = _level_supports(f1, f2, coords, g, lvl)
         some = tb.queries > 0

@@ -104,12 +104,15 @@ def _port_v2(f1, f2, coords, levels=4):
     return corr_lookup_v2.corr_pyramid_lookup_v2(planes, torch.from_numpy(coords), R)
 
 
-@pytest.mark.parametrize("c,b", [(16, 1), (32, 2)], ids=["c16_b1_k6", "c32_b2_k7"])
-def test_k6_k7_plain_matches_pallas_fused_kernel(c, b):
+@pytest.mark.parametrize("c,b,hw", [(16, 1, (8, 16)), (32, 2, (8, 16)), (16, 2, (7, 13))],
+                         ids=["c16_b1_k6", "c32_b2_k7", "c16_b2_k7_ragged"])
+def test_k6_k7_plain_matches_pallas_fused_kernel(c, b, hw):
     """B=1 takes the all-levels path (K6), B=2 the per-level path (K7) in both
     packages; C=16 scales by an exact reciprocal, C=32 divides; windows fully
-    and partly out of bounds (coords up to 15 px out)."""
-    f1, f2, coords = _lookup_inputs(b=b, c=c, seed=4)
+    and partly out of bounds (coords up to 15 px out); 7x13 is a query grid
+    that the 8x8 tiles of the CUDA kernels cut raggedly, with odd pooled
+    sizes."""
+    f1, f2, coords = _lookup_inputs(b=b, h8=hw[0], w8=hw[1], c=c, seed=4)
     got = _port_fused(f1, f2, coords)
     pyr = jcf.build_fused_pyramid(jnp.asarray(f1), jnp.asarray(f2), 4, R)
     want = jcf.corr_pyramid_lookup_fused(pyr, jnp.asarray(coords), R, dy_major=False)
