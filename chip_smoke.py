@@ -18,11 +18,12 @@ each printing one JSON line per check or configuration:
    window) on the card against their plain PyTorch versions at the main
    paths' shapes and ragged ones, fp32 (TF32 off) and bf16, with lookup
    coords in bounds, partly out and far out of bounds; K1 also at radius 1
-   and 3, B=2, one level, and launched twice (bit-identical outputs); K6/K7
-   and K9 also at smooth coords (the pixel grid plus N(0, 2 px), their tile
-   path), B=1 and 2 (K7 also 8), C = 36, 256 and 320, and mixed with
-   queries that send their tile to the per-query path, each case with its
-   (level, tile) pairs by path;
+   and 3, B=2, one level, and launched twice (bit-identical outputs); K6/K7,
+   K8 and K9 also at smooth coords (the pixel grid plus N(0, 2 px), their
+   tile path), B=1 and 2 (K7 and K8 also 8), C = 36, 256 and 320, and mixed
+   with queries that send their tile to the per-query path, each case with
+   its (level, tile) pairs by path; K8's bf16 results within one bf16 ulp
+   of the plain fp32 value, and K8 launched twice (bit-identical outputs);
 2. parity: a 216x512, 12-iteration fp32 forward on the card (kernels) against
    the same model and weights on the CPU (plain versions), for each lookup
    backend (plane, fused, pallas);
@@ -61,8 +62,9 @@ each printing one JSON line per check or configuration:
    teacher SMURF loss (360x640 and 288x640 crops of 368x1240 frames), the
    Unsup step (368x768 crops of 432x1024 frames) and the chairs Baseline step
    (B=10, 368x496, unfrozen batch norm; K8/K9 timed at its shape too); every
-   K2 launch of a step must run the conv's tensor-core body. Beside K9's
-   times, the share of its (level, tile) pairs that took the tile path.
+   K2 launch of a step must run the conv's tensor-core body. Beside K8's and
+   K9's times, the share of their (level, tile) pairs that took the tile
+   path.
 
 Then it prints K2's and K5's device time per fnet stage shape beside
 ``F.conv2d``'s, a JSON line of the kernels (launches in their configuration's
@@ -335,6 +337,14 @@ def check_close(name, got, want, rtol, atol):
     return float(err.max())
 
 
+def check_ulp(name, got, want, atol):
+    """Max |got - want| of a bf16 result against the plain fp32 value;
+    raises unless every element is within 2^-8 * |want| of it (at least half
+    a bf16 ulp of want and less than one: the bf16 rounding of an exact fp32
+    sum is within half an ulp) plus atol for the fp32 sums' own error."""
+    return check_close(name, got, want, 2.0 ** -8, atol)
+
+
 def synthetic_pair(b, h, w, gen, shift=(3, 5)):
     """Smooth random image pair [B, H, W, 3] in [0, 1], the second shifted."""
     import torch
@@ -517,26 +527,74 @@ def k9_checks(dev, dtype, gen, checks):
     rtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     for name, b, c in (("smooth", 1, 256), ("smooth", 2, 256), ("mixed", 2, 256),
                        ("smooth", 1, 36), ("smooth", 1, 320)):
-        h8, w8 = 50, 90
-        f1 = torch.randn(b, h8, w8, c, generator=gen).to(dev, dtype)
-        f2 = torch.randn(b, h8, w8, c, generator=gen).to(dev, dtype)
-        pyr = corr_fused.build_fused_pyramid(f1, f2, LEVELS)
-        coords = smooth_coords(b, h8, w8, gen, dev)
-        if name == "mixed":
-            coords[::997] = torch.tensor([1e9, -1e9], device=dev)
-            coords[diverging_queries(b, h8, w8)] += torch.tensor([20.0, 20.0], device=dev)
-        paths = tile_paths(pyr.f1, pyr.f2s, coords)
-        if paths["tile_path"] == 0 or (name == "mixed") != (paths["per_query"] > 0):
-            raise AssertionError(f"K9 {name} B={b} C={c}: unexpected paths {paths}")
-        g = torch.randn(b * h8 * w8, LEVELS * K2, generator=gen).to(dev, dtype)
+        pyr, coords, paths, g = bwd_tile_case(name, b, c, dtype, gen, dev)
         got = corr_fused.bwd_df2(pyr.f1, pyr.f2s, coords, g, RADIUS)
         want = corr_fused.bwd_df2_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g,
                                         RADIUS)
         e = max(check_close(f"K9 {name} B={b} C={c} level {lvl} {dtype}", a, w, rtol, 1e-4)
                 for lvl, (a, w) in enumerate(zip(got, want)))
-        checks.append({"kernel": "bwd_df2", "coords": name, "batch": b, "shape": [h8, w8],
+        checks.append({"kernel": "bwd_df2", "coords": name, "batch": b, "shape": [50, 90],
                        "channels": c, "dtype": str(dtype), "err": e,
                        "tile_path": paths["tile_path"], "per_query": paths["per_query"]})
+
+
+def bwd_tile_case(name, b, c, dtype, gen, dev, h8=50, w8=90):
+    """(fused pyramid, coords, their (level, tile) pairs by path, g) of a K8
+    / K9 check at the supervised crop's 50x90: random features of C
+    channels, smooth coords, and for name "mixed" some queries far out (they
+    leave their tile's box) and some 20 px off (their tile's level-0 box
+    exceeds MAX_BOX_TAPS, so it goes per query), so both bodies run in one
+    launch. Raises unless those paths are as the name says."""
+    import torch
+
+    from flow_supervisor_tpu_torch.kernels import corr_fused
+
+    f1 = torch.randn(b, h8, w8, c, generator=gen).to(dev, dtype)
+    f2 = torch.randn(b, h8, w8, c, generator=gen).to(dev, dtype)
+    pyr = corr_fused.build_fused_pyramid(f1, f2, LEVELS)
+    coords = smooth_coords(b, h8, w8, gen, dev)
+    if name == "mixed":
+        coords[::997] = torch.tensor([1e9, -1e9], device=dev)
+        coords[diverging_queries(b, h8, w8)] += torch.tensor([20.0, 20.0], device=dev)
+    paths = tile_paths(pyr.f1, pyr.f2s, coords)
+    if paths["tile_path"] == 0 or (name == "mixed") != (paths["per_query"] > 0):
+        raise AssertionError(f"{name} B={b} C={c}: unexpected paths {paths}")
+    g = torch.randn(b * h8 * w8, LEVELS * K2, generator=gen).to(dev, dtype)
+    return pyr, coords, paths, g
+
+
+def k8_checks(dev, dtype, gen, checks):
+    """K8 on the tile path, against its plain version: smooth coords at the
+    supervised crop's 50x90 at B=1 and 2 (84 and 168 blocks, fewer than two
+    an SM) and B=8 (672); mixed cases in which some tiles hold a query far
+    out (it leaves the box) or 20 px off (its level-0 box exceeds
+    MAX_BOX_TAPS: that tile goes per query at that level), so both bodies run
+    in one launch; C = 36 (the CUDA-core body with scalar loads) and C = 320
+    (a ragged second channel slice). Each case runs twice and the two d_f1
+    must be bitwise equal (no atomics, a fixed order of sums). fp32: sums of
+    up to 400 products in another order (rtol 1e-5, atol 1e-4); bf16: one
+    bf16 ulp of the plain fp32 value (``check_ulp``), atol 1e-4."""
+    import torch
+
+    from flow_supervisor_tpu_torch.kernels import corr_fused
+
+    for name, b, c in (("smooth", 1, 256), ("smooth", 2, 256), ("smooth", 8, 256),
+                       ("mixed", 1, 256), ("mixed", 8, 256), ("smooth", 1, 36), ("smooth", 2, 36),
+                       ("smooth", 1, 320), ("smooth", 8, 320)):
+        pyr, coords, paths, g = bwd_tile_case(name, b, c, dtype, gen, dev)
+        got = corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, RADIUS)
+        want = corr_fused.bwd_df1_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g,
+                                        RADIUS)
+        case = f"K8 {name} B={b} C={c} {dtype}"
+        e = (check_ulp(case, got, want, 1e-4) if dtype == torch.bfloat16
+             else check_close(case, got, want, 1e-5, 1e-4))
+        if not torch.equal(corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, RADIUS), got):
+            raise AssertionError(f"K8 {name} B={b} C={c} {dtype}: two launches differ")
+        checks.append({"kernel": "bwd_df1", "coords": name, "batch": b, "shape": [50, 90],
+                       "channels": c, "dtype": str(dtype), "err": e,
+                       "bit_identical": True, "tile_path_by_level": paths["tile_path_by_level"],
+                       "per_query_by_level": paths["per_query_by_level"]})
+        del pyr, got, want
 
 
 def phase_kernels(dev):
@@ -632,6 +690,7 @@ def phase_kernels(dev):
             if bf16 and (b, h8) == (1, 50):
                 errs["bwd_df1"], errs["bwd_df2"] = e8, e9
             del pyr, got, want, f1p, f2p
+        k8_checks(dev, dtype, gen, checks)
         k9_checks(dev, dtype, gen, checks)
         # K2: the three stage shapes, a width that is not a multiple of 8 and
         # the KITTI fnet width (155) at C = 96, Cout = 72; bf16 on the
@@ -1318,8 +1377,8 @@ def train_bwd_timing(model, shapes, dev):
     """K8 / K9 against their plain versions on the inputs of a step's last
     student lookups (``bwd_lookup_inputs``) at each of `shapes`, (name, batch,
     forward, calls per step): ms per step (per-call device time x calls), the
-    card's least time for them and its share, and K9's (level, tile) pairs by
-    path."""
+    card's least time for them and its share, and K8's and K9's (level,
+    tile) pairs by path."""
     import torch
 
     from flow_supervisor_tpu_torch.kernels import corr_fused
@@ -1355,8 +1414,7 @@ def train_bwd_timing(model, shapes, dev):
                                    "calls_per_step": calls, "ms": k, "plain_ms": p,
                                    "bound_ms": max(tb, to), "bound_share": max(tb, to) / k,
                                    "bytes": nbytes, "ops": ops}
-            if kname == "bwd_df2":
-                t["per_call"][name].update(tile_paths(f1, f2s, coords))
+            t["per_call"][name].update(tile_paths(f1, f2s, coords))
         del pyr
     for t in times.values():
         t["bound_by"] = "bytes" if t.pop("t_bytes") >= t.pop("t_ops") else "operations"
@@ -1430,7 +1488,8 @@ def train_main(dev, kind: str, batches, **shapes):
            "device_ms_per_step": prof.get("device_ms_per_forward"),
            "device_idle_share": prof.get("device_idle_share"),
            "launches_per_step_all": prof.get("launches_per_forward"),
-           "by_category_ms_per_step": prof.get("by_category_ms_per_forward")}
+           "by_category_ms_per_step": prof.get("by_category_ms_per_forward"),
+           "launches_by_category_per_step": prof.get("launches_by_category_per_forward")}
     return got, model, dev_batches, res
 
 

@@ -468,32 +468,6 @@ __device__ void tile_contract_tc(const __nv_bfloat16* __restrict__ f1,
   }
 }
 
-// 4 channels [c, c + 4) of a row as fp32, zero past C; VEC: C % 8 == 0 and
-// 16-byte aligned rows (c is a multiple of 4).
-template <bool VEC>
-__device__ __forceinline__ float4 load4(const float* __restrict__ row, int c, int C) {
-  if (VEC) return c < C ? *reinterpret_cast<const float4*>(row + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-  float v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = c + i < C ? row[c + i] : 0.f;
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
-template <bool VEC>
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* __restrict__ row, int c, int C) {
-  if (VEC) {
-    if (c >= C) return make_float4(0.f, 0.f, 0.f, 0.f);
-    const uint2 raw = *reinterpret_cast<const uint2*>(row + c);
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    return make_float4(lo.x, lo.y, hi.x, hi.y);
-  }
-  float v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = c + i < C ? __bfloat162float(row[c + i]) : 0.f;
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
 // The CUDA-core body, fp32. Per 128-channel chunk f1s [TQ, 128]; per pass
 // f2s [kPassTaps, 128]; a thread computes queries tq + 16 i (i < TQ / 16)
 // times taps ta + 16 j (j < 4) from float4 reads (the strided rows keep a

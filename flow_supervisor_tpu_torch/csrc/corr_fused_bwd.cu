@@ -19,20 +19,41 @@
 //
 // The TPU design scattered each query tile's support cotangents into a zeroed
 // [TQ, hp, wp] VMEM slab with lane rolls and 8-queries-per-lane-group packing,
-// then contracted the slab on the MXU, because Mosaic cannot gather or
-// scatter. A GPU can, so K8 touches only the support taps; K9 keeps the
-// tile's pre-reduction (below), because its sums collide.
+// then contracted the slab on the MXU (K8: d_f1_tile = slab . f2_l, one
+// pallas_call per level, summed over levels in fp32 in level order). Both
+// kernels here keep the tile, but contract only the bounding box of the
+// tile's valid taps, not the whole map.
 //
 // What bounds them on an H100:
-// - K8 reads, per query and level, the same <= 100 support vectors of C
-//   values as the forward K6 and does 2*C flops on each; neighbouring
-//   queries' supports overlap, so that traffic hits L1/L2 and the unique
-//   bytes (g, the pooled f2, d_f1) bound it at microseconds, far below what
-//   the per-query re-reads cost. One warp per query, all levels in one launch:
-//   lanes build every level's d_sup in shared memory, then each lane owns 8
-//   channels (one 16-byte load of a bf16 row per lane) and accumulates the
-//   weighted support vectors in registers. d_f1 is written once, with no
-//   atomics, so it is deterministic.
+// - K8's unique bytes (g, the pooled f2 pyramid, d_f1: about 53 MB at the
+//   chairs Baseline step's lookup, B=10 at 46x62, bf16) bound it at about
+//   16 us a call; the flops (2*C per support tap) are far below the tensor
+//   cores' rate. Its first design, one warp per query and all levels in one
+//   launch, gathered every nonzero support tap's C-channel row of f2 for
+//   each query: up to 400 rows of 512 bytes a query, 5.8 GB of L1/L2 reads a
+//   chairs call, where neighbouring queries' supports overlap. It took 0.666
+//   ms a chairs call on an NVIDIA H100 80GB HBM3 at 700 W (2.4 % of its
+//   bound), and indexed the levels at run time (a local-memory frame). Now a
+//   block takes an 8x8 tile of neighbouring queries of one sample (the
+//   forward's tiles, tiles.cuh) and a slice of 256 channels. Per level: the
+//   windows, the box of the valid taps and every query's d_sup in shared
+//   memory (the level's pointers selected by static index), then per pass
+//   of kBoxChunk box taps the dense cotangent D [64 queries, taps] and
+//   acc += D . f2_box[taps, 256] into fp32 registers: on the tensor cores
+//   for bf16 with C % 8 == 0 (mma.sync m16n8k16, D as a bf16 high part and
+//   the bf16 rest, both into one fp32 accumulator, as K9; the box rows
+//   stream by cp.async through two buffers, addressed without integer
+//   division), on the CUDA cores in fp32 otherwise. A level whose box
+//   exceeds kMaxBoxTaps takes a per-query body into shared memory, added
+//   into the same accumulator at that level. One block walks the levels
+//   0..L-1 and writes its sums once: no atomics, a fixed order of sums, the
+//   same bits from run to run. On that card (python -m
+//   flow_supervisor_tpu_torch.probe_k8) a chairs call (480 tiles) takes
+//   about 0.14 ms, a sup call (B=1 at 50x90: 84 tiles, 84 blocks for 132
+//   SMs) about 0.05; at chairs the level prologues (d_sup from g) take about
+//   a third, the mma.sync a quarter, the box rows' staging a fifth. A block
+//   per level and a second kernel that sums the levels in order (the
+//   probe's layout B) was faster at sup only, by about 0.02 ms a call.
 // - K9 was bound by its atomic traffic to L2, not by bytes: its first
 //   design (one warp per (query, level), every valid tap adding the query's
 //   whole C-channel row with 16-byte atomics) took 55.07 ms per Sintel semi
@@ -59,9 +80,8 @@
 //   windows) takes the first design's per-query atomic body instead, so
 //   any coords stay correct at a bounded cost per block. The atomics still
 //   sum in an order that changes from run to run, so d_f2 differs between
-//   runs by fp32 rounding.
-// Channels not a multiple of 8 take a scalar path (lane + 32*i), and C > 256
-// loops over 256-channel chunks, as in the forward.
+//   runs by fp32 rounding. Channels not a multiple of 8 take a scalar path
+//   (lane + 32*i), and C > 256 loops over 256-channel chunks.
 #include <limits.h>
 #include <stdint.h>
 
@@ -103,57 +123,6 @@ __device__ __forceinline__ float dsup_at(const TG* __restrict__ gl, int radius, 
   return d * scale;
 }
 
-// d_sup [(2r+2)^2] of one query at one level into shared memory, by the
-// warp's lanes.
-template <typename TG>
-__device__ void support_cotangent(const TG* __restrict__ gl, int radius, const Window& w,
-                                  int h2, int w2, float scale, float* dsup, int lane) {
-  const int sp = 2 * radius + 2;
-  for (int s = lane; s < sp * sp; s += 32) {
-    dsup[s] = dsup_at(gl, radius, w, s / sp, s % sp, h2, w2, scale);  // row u (y), column v (x)
-  }
-}
-
-// Write the 8 fp32 values of fst_load8's layout into a row of float / bf16.
-template <bool VEC>
-__device__ __forceinline__ void store8(float* __restrict__ row, int chunk, int lane, int C,
-                                       const float v[8]) {
-  if (VEC) {
-    const int c = chunk * 256 + lane * 8;
-    if (c < C) {
-      *reinterpret_cast<float4*>(row + c) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(row + c + 4) = make_float4(v[4], v[5], v[6], v[7]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = chunk * 256 + lane + 32 * i;
-      if (c < C) row[c] = v[i];
-    }
-  }
-}
-
-template <bool VEC>
-__device__ __forceinline__ void store8(__nv_bfloat16* __restrict__ row, int chunk, int lane,
-                                       int C, const float v[8]) {
-  if (VEC) {
-    const int c = chunk * 256 + lane * 8;
-    if (c < C) {
-      uint4 raw;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      *reinterpret_cast<uint4*>(row + c) = raw;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = chunk * 256 + lane + 32 * i;
-      if (c < C) row[c] = __float2bfloat16(v[i]);
-    }
-  }
-}
-
 // acc[c] += d * a[i] for the 8 channels of fst_load8's layout, atomically.
 template <bool VEC>
 __device__ __forceinline__ void atomic_add8(float* __restrict__ row, int chunk, int lane, int C,
@@ -177,64 +146,6 @@ __device__ __forceinline__ void atomic_add8(float* __restrict__ row, int chunk, 
       const int c = chunk * 256 + lane + 32 * i;
       if (c < C) atomicAdd(row + c, d * a[i]);
     }
-  }
-}
-
-// K8: one warp per query, all levels. d_f1 [B*Q, C] in TIn.
-template <typename TIn, typename TG, bool VEC>
-__global__ void __launch_bounds__(kWarps * 32)
-    bwd_df1_kernel(Levels lv, int levels, const float* __restrict__ coords,
-                   const TG* __restrict__ g, TIn* __restrict__ d_f1, int bq, int q_per_b, int C,
-                   int radius) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long q = (long)blockIdx.x * kWarps + warp;
-  if (q >= bq) return;  // the whole warp leaves together
-  const int sp = 2 * radius + 2;
-  const int ns = sp * sp;
-  const int k2 = (2 * radius + 1) * (2 * radius + 1);
-  float* dsup = smem + (long)warp * levels * ns;
-  const long b = q / q_per_b;
-  const float cx = coords[2 * q];
-  const float cy = coords[2 * q + 1];
-  const float scale = 1.f / sqrtf((float)C);
-  for (int l = 0; l < levels; ++l) {
-    const float s = 1.0f / (float)(1 << l);
-    const Window w = window_at(cx * s, cy * s, radius, lv.h2[l], lv.w2[l]);
-    support_cotangent(g + q * (long)levels * k2 + l * k2, radius, w, lv.h2[l], lv.w2[l], scale,
-                      dsup + l * ns, lane);
-  }
-  __syncwarp();
-  const int nchunks = (C + 255) / 256;
-  for (int chunk = 0; chunk < nchunks; ++chunk) {
-    float acc[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-    for (int l = 0; l < levels; ++l) {
-      const int h2 = lv.h2[l];
-      const int w2 = lv.w2[l];
-      const float s = 1.0f / (float)(1 << l);
-      const Window w = window_at(cx * s, cy * s, radius, h2, w2);
-      const TIn* f2b = static_cast<const TIn*>(lv.p[l]) + b * (long)h2 * w2 * C;
-      const float* ds = dsup + l * ns;
-      int u = 0;
-      int v = 0;
-      for (int t = 0; t < ns; ++t) {
-        const float d = ds[t];  // the same slot on every lane: a broadcast
-        const int y = w.by + u;
-        const int x = w.bx + v;
-        v = v + 1 == sp ? 0 : v + 1;
-        u += v == 0;
-        if (d != 0.f) {  // taps outside the map hold 0
-          float f[8];
-          fst_load8<VEC>(f2b + ((long)y * w2 + x) * C, chunk, lane, C, f);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) acc[i] = fmaf(d, f[i], acc[i]);
-        }
-      }
-    }
-    store8<VEC>(d_f1 + q * C, chunk, lane, C, acc);
   }
 }
 
@@ -662,18 +573,641 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// ---- K8 ----
+//
+// A block takes a kTileY x kTileX tile of neighbouring queries of one sample
+// and one slice of W channels [c0, c0 + W) (df1_tile), and walks its levels
+// in order, holding the tile's d_f1 slice in fp32 registers across them. Per
+// level: the queries' windows, the box of their valid taps and their d_sup
+// (df1_level); then, per pass of kBoxChunk box taps, the dense cotangent D
+// [64 queries, taps] and acc += D . f2_box[taps, W]. A level whose box
+// exceeds kMaxBoxTaps takes the per-query body into shared memory instead,
+// added into acc before the next level. The block writes acc once, after
+// the last level. No atomics, a fixed order of sums: bitwise the same from
+// run to run. The kernel takes W = kDf1Slice on the tensor cores.
+
+constexpr int kTileQ = kTileY * kTileX;  // a K8 block's queries, in tile order
+constexpr int kOutside = -(1 << 30);     // window base of a query with no valid tap
+constexpr int kDStride = kBoxChunk + 8;  // bf16 D [query, tap]; ldmatrix's 8 rows on distinct banks
+constexpr int kDtStride = kBoxChunk + 4; // fp32 D^T [tap, query] of the CUDA-core body
+constexpr int kDf1Slice = 256;           // channels a block takes on the tensor cores
+constexpr int kCcSlice = 128;            // channels a block takes on the CUDA cores
+
+// K8's shared memory after the operands: each query's d_sup at the current
+// level (stride ds = (2r+2)^2 | 1, odd, so that neighbouring queries' slots
+// fall on distinct banks), its row in B*Q (-1 outside the grid), window base
+// (kOutside without a valid tap) and fractional part, then 5 reduction slots
+// per query warp.
+struct Df1Smem {
+  float* dsup;
+  int* qrow;
+  int* qbx;
+  int* qby;
+  float* qfx;
+  float* qfy;
+  int* wstat;
+};
+
+__host__ __device__ inline int dsup_stride(int radius) {
+  const int sp = 2 * radius + 2;
+  return (sp * sp) | 1;
+}
+
+// The operands in 4-byte words. Tensor cores: two buffers of kBoxChunk f2
+// rows of W bf16 (stride W + 8) and D's high and low part; CUDA cores: f2
+// rows [kBoxChunk, kCcSlice + 4] and D^T [kBoxChunk, kDtStride], fp32. The
+// per-query body's fp32 sums [64, W + 8] (tensor cores) or [64, kCcSlice + 4]
+// alias the f2 rows: the same words.
+__host__ __device__ inline long df1_operand_words(int w, bool tc) {
+  return tc ? (long)kBoxChunk * (w + 8) + (long)kTileQ * kDStride
+            : (long)kBoxChunk * (kCcSlice + 4) + (long)kBoxChunk * kDtStride;
+}
+
+__host__ __device__ inline long df1_smem_words(int w, bool tc, int radius) {
+  return df1_operand_words(w, tc) + (long)kTileQ * (dsup_stride(radius) + 5) +
+         kTileQ / 32 * 5;
+}
+
+__device__ inline Df1Smem df1_smem(float* base, int ds) {
+  Df1Smem sm;
+  sm.dsup = base;
+  sm.qrow = reinterpret_cast<int*>(base + kTileQ * ds);
+  sm.qbx = sm.qrow + kTileQ;
+  sm.qby = sm.qbx + kTileQ;
+  sm.qfx = reinterpret_cast<float*>(sm.qby + kTileQ);
+  sm.qfy = sm.qfx + kTileQ;
+  sm.wstat = reinterpret_cast<int*>(sm.qfy + kTileQ);
+  return sm;
+}
+
+// A tile at one level: the map's size, the number of queries with a valid
+// tap and the box [x0, x0 + bw) x [y0, y0 + bh) of their valid taps (inv_bw =
+// 1 / bw).
+struct Df1Level {
+  int h2, w2, nvalid, x0, y0, bw, bh;
+  float inv_bw;
+};
+
+// Box tap a -> its map row y and column x, by a float reciprocal of the box
+// width (exact for a < kMaxBoxTaps + kBoxChunk, as in corr_fused.cu).
+__device__ __forceinline__ void box_tap(const Df1Level& t, int a, int& y, int& x) {
+  const int r = (int)(((float)a + 0.5f) * t.inv_bw);
+  y = t.y0 + r;
+  x = t.x0 + a - r * t.bw;
+}
+
+// Block-wide, at level l of a map h2 x w2: thread q < 64 holds its query's
+// row (-1 outside the grid) and coords (cx, cy) at level 0. Writes each
+// query's window, finds the box and writes every valid query's d_sup. Ends
+// with a barrier, so the caller may use all of it.
+template <typename TG>
+__device__ Df1Level df1_level(const Df1Smem& sm, int l, int levels, int h2, int w2, int row,
+                              float cx, float cy, const TG* __restrict__ g, int C, int radius,
+                              int ds) {
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int sp = 2 * radius + 2;
+  if (warp < kTileQ / 32) {
+    Window w = {kOutside, kOutside, 0.f, 0.f};
+    bool valid = false;
+    int x0 = INT_MAX, y0 = INT_MAX, x1 = INT_MIN, y1 = INT_MIN;
+    if (row >= 0) {
+      const float s = 1.0f / (float)(1 << l);
+      w = window_at(cx * s, cy * s, radius, h2, w2);
+      const int vx0 = max(w.bx, 0), vx1 = min(w.bx + sp, w2);
+      const int vy0 = max(w.by, 0), vy1 = min(w.by + sp, h2);
+      valid = vx0 < vx1 && vy0 < vy1;
+      if (valid) {
+        x0 = vx0;
+        x1 = vx1;
+        y0 = vy0;
+        y1 = vy1;
+      } else {
+        w.bx = w.by = kOutside;  // no box tap lies in its window
+      }
+    }
+    sm.qbx[tid] = w.bx;
+    sm.qby[tid] = w.by;
+    sm.qfx[tid] = w.fx;
+    sm.qfy[tid] = w.fy;
+    const unsigned mask = __ballot_sync(0xffffffffu, valid);
+    x0 = __reduce_min_sync(0xffffffffu, x0);
+    y0 = __reduce_min_sync(0xffffffffu, y0);
+    x1 = __reduce_max_sync(0xffffffffu, x1);
+    y1 = __reduce_max_sync(0xffffffffu, y1);
+    if (lane == 0) {
+      int* ws = sm.wstat + warp * 5;
+      ws[0] = x0;
+      ws[1] = y0;
+      ws[2] = x1;
+      ws[3] = y1;
+      ws[4] = __popc(mask);
+    }
+  }
+  __syncthreads();
+  Df1Level t;
+  t.h2 = h2;
+  t.w2 = w2;
+  int x0 = INT_MAX, y0 = INT_MAX, x1 = INT_MIN, y1 = INT_MIN, n = 0;
+  for (int i = 0; i < kTileQ / 32; ++i) {
+    const int* ws = sm.wstat + i * 5;
+    x0 = min(x0, ws[0]);
+    y0 = min(y0, ws[1]);
+    x1 = max(x1, ws[2]);
+    y1 = max(y1, ws[3]);
+    n += ws[4];
+  }
+  t.nvalid = n;
+  t.x0 = x0;
+  t.y0 = y0;
+  t.bw = x1 - x0;
+  t.bh = y1 - y0;
+  t.inv_bw = n > 0 ? 1.f / (float)t.bw : 0.f;
+  if (n > 0) {
+    // d_sup of the valid queries (as dsup_at): a thread takes (query,
+    // support column v) and walks down the column, keeping the row above's
+    // two window values
+    const int k = 2 * radius + 1;
+    const float scale = 1.f / sqrtf((float)C);
+    for (int e = tid; e < kTileQ * sp; e += blockDim.x) {
+      const int q = e / sp;
+      const int v = e - q * sp;
+      const int bx = sm.qbx[q];
+      if (bx == kOutside) continue;
+      const int by = sm.qby[q];
+      const float fx = sm.qfx[q];
+      const float fy = sm.qfy[q];
+      const bool xin = bx + v >= 0 && bx + v < w2;
+      const TG* gv = g + ((long)sm.qrow[q] * levels + l) * k * k + v * k;  // dy index iy at gv[iy]
+      float up = 0.f, up_left = 0.f;  // window values at (u - 1, v) and (u - 1, v - 1)
+      for (int u = 0; u < sp; ++u) {
+        const float cur = u < k && v < k ? fst_load(gv, u) : 0.f;
+        const float left = u < k && v >= 1 ? fst_load(gv, u - k) : 0.f;
+        const float d = (1.f - fy) * (1.f - fx) * cur + (1.f - fy) * fx * left +
+                        fy * (1.f - fx) * up + fy * fx * up_left;
+        sm.dsup[q * ds + u * sp + v] = xin && by + u >= 0 && by + u < h2 ? d * scale : 0.f;
+        up = cur;
+        up_left = left;
+      }
+    }
+  }
+  __syncthreads();  // the windows, box and d_sup are read next; wstat is rewritten a level on
+  return t;
+}
+
+// 2 channels [c, c + 2) of a row as fp32, zero past C; VEC: C % 8 == 0 and
+// 16-byte aligned rows (c even).
+template <bool VEC>
+__device__ __forceinline__ float2 load2(const float* __restrict__ row, int c, int C) {
+  if (VEC) return c < C ? *reinterpret_cast<const float2*>(row + c) : make_float2(0.f, 0.f);
+  return make_float2(c < C ? row[c] : 0.f, c + 1 < C ? row[c + 1] : 0.f);
+}
+
+template <bool VEC>
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* __restrict__ row, int c, int C) {
+  if (VEC) {
+    return c < C ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c))
+                 : make_float2(0.f, 0.f);
+  }
+  return make_float2(c < C ? __bfloat162float(row[c]) : 0.f,
+                     c + 1 < C ? __bfloat162float(row[c + 1]) : 0.f);
+}
+
+// The per-query body, for a level whose box exceeds kMaxBoxTaps: warp w takes
+// queries w, w + kWarps, ...; lane i sums d_sup * f2 over the query's nonzero
+// taps for channels c0 + 2 (i + 32 j) + {0, 1}, j < W / 64, in fp32, and
+// writes them into sums [64, STRIDE] (zeros for a query with no valid tap).
+template <typename TIn, bool VEC, int W, int STRIDE>
+__device__ void df1_per_query(const TIn* __restrict__ f2b, const Df1Level& t, const Df1Smem& sm,
+                              int c0, int C, int radius, int ds, float* sums) {
+  constexpr int NJ = W / 64;
+  const int lane = threadIdx.x % 32;
+  const int sp = 2 * radius + 2;
+  for (int q = threadIdx.x / 32; q < kTileQ; q += kWarps) {
+    float s[NJ][2];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = 0.f;
+    const int bx = sm.qbx[q];
+    const int by = sm.qby[q];
+    if (bx != kOutside) {  // the same for the whole warp
+      const float* dq = sm.dsup + q * ds;
+      for (int u = 0; u < sp; ++u) {
+        for (int v = 0; v < sp; ++v) {
+          const float d = dq[u * sp + v];  // a broadcast; 0 at taps outside the map
+          if (d == 0.f) continue;
+          const TIn* row = f2b + ((long)(by + u) * t.w2 + bx + v) * C;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const float2 f = load2<VEC>(row, c0 + 2 * (lane + 32 * j), C);
+            s[j][0] = fmaf(d, f.x, s[j][0]);
+            s[j][1] = fmaf(d, f.y, s[j][1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      *reinterpret_cast<float2*>(sums + q * STRIDE + 2 * (lane + 32 * j)) =
+          make_float2(s[j][0], s[j][1]);
+    }
+  }
+}
+
+// ---- the tensor-core body: bf16, C % 8 == 0 ----
+// Warp w holds acc for queries (w % 4) * 16 + lane / 4 + {0, 8} times
+// channels c0 + (w / 4) * W / 2 + 8 nt + 2 (lane % 4) + {0, 1}, nt < W / 16:
+// the m16n8k16 accumulator layout, 4 floats an n-tile.
+
+// Stage the f2 rows of box taps [a0, a0 + kBoxChunk), channels [c0, c0 + W),
+// into dst [kBoxChunk, W + 8] by cp.async (zeros past the box and past C).
+template <int W>
+__device__ __forceinline__ void df1_stage(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ f2b,
+                                          const Df1Level& t, int a0, int c0, int C) {
+  constexpr int SEGS = W / 8;  // 16-byte segments a row
+  const int A = t.bw * t.bh;
+  for (int e = threadIdx.x; e < kBoxChunk * SEGS; e += kThreads) {
+    const int j = e / SEGS;
+    const int sg = e % SEGS;
+    const int a = a0 + j;
+    const int c = c0 + sg * 8;
+    const bool in = a < A && c < C;
+    int y, x;
+    box_tap(t, a, y, x);
+    cp_async16(dst + j * (W + 8) + sg * 8, in ? f2b + ((long)y * t.w2 + x) * C + c : f2b,
+               in ? 16 : 0);
+  }
+}
+
+// D [64 queries, kBoxChunk taps] of box taps [a0, a0 + kBoxChunk) as a bf16
+// high part dh and the bf16 rest dl: thread i takes query i / 4, taps 16 (i %
+// 4) + [0, 16), stepping along the box rows without a division.
+__device__ __forceinline__ void df1_build_d(const Df1Level& t, const Df1Smem& sm, int a0,
+                                            int radius, int ds, __nv_bfloat16* dh,
+                                            __nv_bfloat16* dl) {
+  const int q = threadIdx.x / 4;
+  const int j0 = (threadIdx.x % 4) * 16;
+  const int sp = 2 * radius + 2;
+  const int bx = sm.qbx[q];
+  const int by = sm.qby[q];
+  const float* dq = sm.dsup + q * ds;
+  const int left = t.bw * t.bh - a0 - j0;  // taps of the box from the first
+  int y, x;
+  box_tap(t, a0 + j0, y, x);
+  uint4 hv[2], lv[2];
+  __nv_bfloat162* h2p = reinterpret_cast<__nv_bfloat162*>(hv);
+  __nv_bfloat162* l2p = reinterpret_cast<__nv_bfloat162*>(lv);
+#pragma unroll
+  for (int j = 0; j < 16; j += 2) {
+    float d[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int u = y - by;
+      const int v = x - bx;
+      d[h] = j + h < left && (unsigned)u < (unsigned)sp && (unsigned)v < (unsigned)sp
+                 ? dq[u * sp + v] : 0.f;
+      if (++x == t.x0 + t.bw) {
+        x = t.x0;
+        ++y;
+      }
+    }
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(d[0], d[1]);
+    const float2 hf = __bfloat1622float2(hi);
+    h2p[j / 2] = hi;
+    l2p[j / 2] = __floats2bfloat162_rn(d[0] - hf.x, d[1] - hf.y);
+  }
+  uint4* ph = reinterpret_cast<uint4*>(dh + q * kDStride + j0);
+  uint4* pl = reinterpret_cast<uint4*>(dl + q * kDStride + j0);
+  ph[0] = hv[0];
+  ph[1] = hv[1];
+  pl[0] = lv[0];
+  pl[1] = lv[1];
+}
+
+// acc += D[:, :kt] . f2_rows[:kt, W] (kt a multiple of 16), each k-step
+// twice (high, low) into the same fp32 accumulator. bf16 x bf16 products are
+// exact in fp32.
+template <int W>
+__device__ __forceinline__ void df1_mma(const __nv_bfloat16* rows, const __nv_bfloat16* dh,
+                                        const __nv_bfloat16* dl, int kt, float* acc) {
+  constexpr int NTW = W / 16;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n0 = (warp / 4) * (W / 2);
+  for (int k0 = 0; k0 < kt; k0 += 16) {
+    unsigned ah[4];
+    unsigned al[4];
+    const int off = ((warp % 4) * 16 + lane % 16) * kDStride + k0 + (lane / 16) * 8;
+    ldsm_x4(dh + off, ah);
+    ldsm_x4(dl + off, al);
+    const __nv_bfloat16* brow = rows + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * (W + 8) + n0 +
+                                (lane / 16) * 8;
+#pragma unroll
+    for (int p = 0; p < NTW / 2; ++p) {
+      unsigned b[4];  // b0, b1 of n-tiles 2p and 2p + 1
+      ldsm_x4_trans(brow + p * 16, b);
+      mma_bf16(acc + 8 * p, ah, b[0], b[1]);
+      mma_bf16(acc + 8 * p, al, b[0], b[1]);
+      mma_bf16(acc + 8 * p + 4, ah, b[2], b[3]);
+      mma_bf16(acc + 8 * p + 4, al, b[2], b[3]);
+    }
+  }
+}
+
+// One level of a tile on the tensor cores: the box's rows stream through two
+// buffers by cp.async, the next pass loading while D of the current one is
+// built and its product taken.
+template <int W>
+__device__ __forceinline__ void df1_contract_tc(const __nv_bfloat16* __restrict__ f2b,
+                                                const Df1Level& t, const Df1Smem& sm, int c0,
+                                                int C, int radius, int ds, float* ops,
+                                                float* acc) {
+  using bf16 = __nv_bfloat16;
+  bf16* const buf[2] = {reinterpret_cast<bf16*>(ops),
+                        reinterpret_cast<bf16*>(ops) + kBoxChunk * (W + 8)};
+  bf16* const dh = buf[1] + kBoxChunk * (W + 8);
+  bf16* const dl = dh + kTileQ * kDStride;
+  const int A = t.bw * t.bh;
+  const int passes = (A + kBoxChunk - 1) / kBoxChunk;
+  df1_stage<W>(buf[0], f2b, t, 0, c0, C);
+  cp_async_commit();
+  for (int p = 0; p < passes; ++p) {
+    const int a0 = p * kBoxChunk;
+    if (p + 1 < passes) {
+      df1_stage<W>(buf[(p + 1) % 2], f2b, t, a0 + kBoxChunk, c0, C);
+      cp_async_commit();
+    }
+    df1_build_d(t, sm, a0, radius, ds, dh, dl);
+    if (p + 1 < passes) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    df1_mma<W>(buf[p % 2], dh, dl, min(kBoxChunk, (A - a0 + 15) & ~15), acc);
+    __syncthreads();  // buf[p % 2] takes pass p + 2, D pass p + 1
+  }
+}
+
+// ---- the CUDA-core body: fp32 sums, any dtype and C ----
+// Thread i holds acc[8 r + s] for query 4 (i / 16) + r and channel c0 + 4 (i
+// % 16) + s (s < 4) or c0 + 64 + 4 (i % 16) + s - 4 (s >= 4). Per pass of
+// kBoxChunk box taps, the f2 rows [taps, kCcSlice] and D^T [taps, 64] in
+// shared memory; a tap adds 32 products from three float4 reads.
+template <typename TIn, bool VEC>
+__device__ __forceinline__ void df1_contract_cc(const TIn* __restrict__ f2b, const Df1Level& t,
+                                                const Df1Smem& sm, int c0, int C, int radius,
+                                                int ds, float* ops, float* acc) {
+  constexpr int FS = kCcSlice + 4;
+  float* f2s = ops;
+  float* dts = ops + kBoxChunk * FS;
+  const int tid = threadIdx.x;
+  const int tq = tid / 16;
+  const int tc = tid % 16;
+  const int sp = 2 * radius + 2;
+  const int A = t.bw * t.bh;
+  for (int a0 = 0; a0 < A; a0 += kBoxChunk) {
+    for (int e = tid; e < kBoxChunk * (kCcSlice / 4); e += kThreads) {
+      const int j = e / (kCcSlice / 4);
+      const int c = (e % (kCcSlice / 4)) * 4;
+      int y, x;
+      box_tap(t, a0 + j, y, x);
+      *reinterpret_cast<float4*>(f2s + j * FS + c) =
+          a0 + j < A ? load4<VEC>(f2b + ((long)y * t.w2 + x) * C, c0 + c, C)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    {
+      const int q = tid % kTileQ;
+      const int bx = sm.qbx[q];
+      const int by = sm.qby[q];
+      for (int j = tid / kTileQ; j < kBoxChunk; j += kThreads / kTileQ) {
+        int y, x;
+        box_tap(t, a0 + j, y, x);
+        const int u = y - by;
+        const int v = x - bx;
+        dts[j * kDtStride + q] = a0 + j < A && (unsigned)u < (unsigned)sp && (unsigned)v < (unsigned)sp
+                                     ? sm.dsup[q * ds + u * sp + v] : 0.f;
+      }
+    }
+    __syncthreads();
+    const int kn = min(kBoxChunk, A - a0);
+    for (int k = 0; k < kn; ++k) {
+      const float4 d = *reinterpret_cast<const float4*>(dts + k * kDtStride + 4 * tq);
+      const float4 fa = *reinterpret_cast<const float4*>(f2s + k * FS + 4 * tc);
+      const float4 fb = *reinterpret_cast<const float4*>(f2s + k * FS + 64 + 4 * tc);
+      const float dv[4] = {d.x, d.y, d.z, d.w};
+      const float fv[8] = {fa.x, fa.y, fa.z, fa.w, fb.x, fb.y, fb.z, fb.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int s = 0; s < 8; ++s) acc[8 * r + s] = fmaf(dv[r], fv[s], acc[8 * r + s]);
+      }
+    }
+    __syncthreads();  // the operands are rewritten next
+  }
+}
+
+// 4 fp32 values into row[c, c + 4) (those below C); VEC: c < C covers all 4
+// and the row is 16-byte aligned.
+template <bool VEC>
+__device__ __forceinline__ void store4(float* __restrict__ row, int c, int C, const float* v) {
+  if (VEC) {
+    if (c < C) *reinterpret_cast<float4*>(row + c) = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (c + i < C) row[c + i] = v[i];
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4(__nv_bfloat16* __restrict__ row, int c, int C,
+                                       const float* v) {
+  if (VEC) {
+    if (c < C) {
+      uint2 raw;
+      reinterpret_cast<__nv_bfloat162*>(&raw)[0] = __floats2bfloat162_rn(v[0], v[1]);
+      reinterpret_cast<__nv_bfloat162*>(&raw)[1] = __floats2bfloat162_rn(v[2], v[3]);
+      *reinterpret_cast<uint2*>(row + c) = raw;
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (c + i < C) row[c + i] = __float2bfloat16(v[i]);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The per-query body's sums [64, STRIDE] into acc, in the body's layout.
+template <int W, bool TC>
+__device__ __forceinline__ void df1_add_sums(const float* sums, float* acc) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if constexpr (TC) {
+    const int qa = (warp % 4) * 16 + lane / 4;
+    const int n0 = (warp / 4) * (W / 2) + 2 * (lane % 4);
+#pragma unroll
+    for (int nt = 0; nt < W / 16; ++nt) {
+      const float2 a = *reinterpret_cast<const float2*>(sums + qa * (W + 8) + n0 + 8 * nt);
+      const float2 b = *reinterpret_cast<const float2*>(sums + (qa + 8) * (W + 8) + n0 + 8 * nt);
+      acc[4 * nt] += a.x;
+      acc[4 * nt + 1] += a.y;
+      acc[4 * nt + 2] += b.x;
+      acc[4 * nt + 3] += b.y;
+    }
+  } else {
+    const int tq = threadIdx.x / 16;
+    const int tc = threadIdx.x % 16;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        acc[8 * r + s] += sums[(4 * tq + r) * (kCcSlice + 4) + 4 * tc + (s / 4) * 64 + s % 4];
+      }
+    }
+  }
+}
+
+// The tile's d_f1 slice from acc into out (rows of C values), in TOut.
+template <typename TOut, bool VEC, int W, bool TC>
+__device__ __forceinline__ void df1_store(const Df1Smem& sm, const float* acc, TOut* __restrict__ out,
+                                          int c0, int C) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if constexpr (TC) {
+    const int qa = (warp % 4) * 16 + lane / 4;
+    const int c = c0 + (warp / 4) * (W / 2) + 2 * (lane % 4);
+    const long ra = sm.qrow[qa];
+    const long rb = sm.qrow[qa + 8];
+#pragma unroll
+    for (int nt = 0; nt < W / 16; ++nt) {
+      if (c + 8 * nt >= C) continue;
+      if (ra >= 0) store2(out + ra * C + c + 8 * nt, acc[4 * nt], acc[4 * nt + 1]);
+      if (rb >= 0) store2(out + rb * C + c + 8 * nt, acc[4 * nt + 2], acc[4 * nt + 3]);
+    }
+  } else {
+    const int tq = threadIdx.x / 16;
+    const int tc = threadIdx.x % 16;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const long row = sm.qrow[4 * tq + r];
+      if (row < 0) continue;
+      store4<VEC>(out + row * C, c0 + 4 * tc, C, acc + 8 * r);
+      store4<VEC>(out + row * C, c0 + 64 + 4 * tc, C, acc + 8 * r + 4);
+    }
+  }
+}
+
+// One K8 block: sample b, tile `tile` of the grid, channels [c0, c0 + W),
+// levels [level0, level1) in order into acc (zeroed here). TC: the
+// tensor-core body (bf16, VEC), W channels; else the CUDA-core body,
+// kCcSlice channels. Returns with acc holding the tile's sums; thread q < 64
+// wrote sm.qrow[q].
+template <typename TIn, typename TG, bool VEC, int W, bool TC>
+__device__ __forceinline__ void df1_tile(const Levels& lv, int levels, int level0, int level1,
+                                         const QueryGrid& grid, int b, int tile,
+                                         const float* __restrict__ coords,
+                                         const TG* __restrict__ g, int q_per_b, int c0, int C,
+                                         int radius, float* smem, const Df1Smem& sm, float* acc) {
+  constexpr int ACC = TC ? W / 4 : 32;
+  constexpr int STRIDE = TC ? W + 8 : kCcSlice + 4;
+  constexpr int SW = TC ? W : kCcSlice;
+  const int tid = threadIdx.x;
+  const int ds = dsup_stride(radius);
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+  int row = -1;
+  float cx = 0.f, cy = 0.f;
+  if (tid < kTileQ) {
+    const int qy = (tile / grid.tiles_x) * kTileY + tid / kTileX;
+    const int qx = (tile % grid.tiles_x) * kTileX + tid % kTileX;
+    if (qy < grid.qh && qx < grid.qw) {
+      row = b * q_per_b + qy * grid.qw + qx;
+      cx = coords[2 * (long)row];
+      cy = coords[2 * (long)row + 1];
+    }
+    sm.qrow[tid] = row;
+  }
+  for (int l = level0; l < level1; ++l) {
+    const void* f2 = nullptr;
+    int h2 = 0, w2 = 0;
+#pragma unroll
+    for (int i = 0; i < kMaxLevels; ++i) {  // static indices: lv stays in the parameter space
+      if (i == l) {
+        f2 = lv.p[i];
+        h2 = lv.h2[i];
+        w2 = lv.w2[i];
+      }
+    }
+    const Df1Level t = df1_level(sm, l, levels, h2, w2, row, cx, cy, g, C, radius, ds);
+    if (t.nvalid == 0) continue;  // the same for every thread
+    const TIn* f2b = static_cast<const TIn*>(f2) + (long)b * h2 * w2 * C;
+    if (t.bw * t.bh > kMaxBoxTaps) {
+      df1_per_query<TIn, VEC, SW, STRIDE>(f2b, t, sm, c0, C, radius, ds, smem);
+      __syncthreads();
+      df1_add_sums<W, TC>(smem, acc);
+      __syncthreads();  // the sums' words take the next level's operands
+    } else if constexpr (TC) {
+      static_assert(VEC && std::is_same<TIn, __nv_bfloat16>::value, "tensor cores take bf16");
+      df1_contract_tc<W>(f2b, t, sm, c0, C, radius, ds, smem, acc);
+    } else {
+      df1_contract_cc<TIn, VEC>(f2b, t, sm, c0, C, radius, ds, smem, acc);
+    }
+  }
+}
+
+// K8: one block per (sample, tile, channel slice): blocks sample-major,
+// then tile, then slice (the slices of a tile start together and share its
+// g and f2 rows in L2). TC: the tensor-core body, kDf1Slice channels a
+// block; else the CUDA-core body, kCcSlice. d_f1 [B*Q, C] in TIn.
+template <typename TIn, typename TG, bool VEC, bool TC>
+__global__ void __launch_bounds__(kThreads, 2)
+    bwd_df1_kernel(Levels lv, int levels, QueryGrid grid, int slices,
+                   const float* __restrict__ coords, const TG* __restrict__ g,
+                   TIn* __restrict__ d_f1, int q_per_b, int C, int radius) {
+  constexpr int W = TC ? kDf1Slice : kCcSlice;
+  extern __shared__ __align__(16) float smem[];
+  const Df1Smem sm = df1_smem(smem + df1_operand_words(W, TC), dsup_stride(radius));
+  const int tiles = grid.tiles_y * grid.tiles_x;
+  const int b = (int)blockIdx.x / (tiles * slices);
+  const int rem = (int)blockIdx.x - b * tiles * slices;
+  const int tile = rem / slices;
+  const int c0 = (rem - tile * slices) * W;
+  float acc[TC ? W / 4 : 32];
+  df1_tile<TIn, TG, VEC, W, TC>(lv, levels, 0, levels, grid, b, tile, coords, g, q_per_b, c0, C,
+                                radius, smem, sm, acc);
+  df1_store<TIn, VEC, W, TC>(sm, acc, d_f1, c0, C);
+}
+
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-inline int support_size(int radius) { return (2 * radius + 2) * (2 * radius + 2); }
-
+// K8 over all `levels`: the tensor-core body for bf16 with VEC, else the
+// CUDA-core body.
 template <typename TIn, typename TG, bool VEC>
 cudaError_t launch_df1(const Levels& lv, int levels, const float* coords, const void* g,
                        void* d_f1, int bq, int q_per_b, int C, int radius, cudaStream_t s) {
-  const int blocks = (bq + kWarps - 1) / kWarps;
-  const size_t smem = (size_t)kWarps * levels * support_size(radius) * sizeof(float);
-  bwd_df1_kernel<TIn, TG, VEC><<<blocks, kWarps * 32, smem, s>>>(
-      lv, levels, coords, static_cast<const TG*>(g), static_cast<TIn*>(d_f1), bq, q_per_b, C,
-      radius);
+  constexpr bool tc = std::is_same<TIn, __nv_bfloat16>::value && VEC;
+  constexpr int width = tc ? kDf1Slice : kCcSlice;
+  const QueryGrid grid = query_grid<kTileY, kTileX>(q_per_b, lv.h2[0], lv.w2[0]);
+  const int slices = (C + width - 1) / width;
+  const long blocks = (long)(bq / q_per_b) * grid.tiles_y * grid.tiles_x * slices;
+  const long smem = df1_smem_words(width, tc, radius) * (long)sizeof(float);
+  auto kernel = bwd_df1_kernel<TIn, TG, VEC, tc>;
+  cudaError_t err = allow_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, smem, s>>>(lv, levels, grid, slices, coords,
+                                                  static_cast<const TG*>(g),
+                                                  static_cast<TIn*>(d_f1), q_per_b, C, radius);
   return cudaGetLastError();
 }
 
@@ -719,9 +1253,10 @@ cudaError_t launch_df2(const void* f1, const Levels& acc, int levels, int level0
     return (int)cudaErrorInvalidValue;                                                \
   } while (0)
 
-bool valid_args(int levels, int bq, int q_per_b, int C, int radius, size_t smem) {
-  return levels >= 1 && levels <= kMaxLevels && bq >= 1 && q_per_b >= 1 && C >= 1 &&
-         radius >= 0 && smem <= 48 * 1024;
+// shared memory is checked against the card's limit at the launch
+bool valid_args(int levels, int bq, int q_per_b, int C, int radius) {
+  return levels >= 1 && levels <= kMaxLevels && bq >= 1 && q_per_b >= 1 && bq % q_per_b == 0 &&
+         C >= 1 && radius >= 0 && radius <= 4096;
 }
 
 }  // namespace
@@ -731,8 +1266,7 @@ extern "C" {
 int fst_corr_fused_bwd_df1(void* const* f2, const int* h2, const int* w2, int levels,
                            const void* coords, const void* g, void* d_f1, int bq, int q_per_b,
                            int C, int radius, int in_dtype, int g_dtype, void* stream) {
-  const size_t smem = (size_t)kWarps * levels * support_size(radius) * sizeof(float);
-  if (!valid_args(levels, bq, q_per_b, C, radius, smem)) return (int)cudaErrorInvalidValue;
+  if (!valid_args(levels, bq, q_per_b, C, radius)) return (int)cudaErrorInvalidValue;
   Levels lv;
   bool vec = C % 8 == 0 && aligned16(d_f1);
   for (int l = 0; l < levels; ++l) {
@@ -749,10 +1283,7 @@ int fst_corr_fused_bwd_df1(void* const* f2, const int* h2, const int* w2, int le
 int fst_corr_fused_bwd_df2(const void* f1, void* const* acc, const int* h2, const int* w2,
                            int levels, const void* coords, const void* g, int bq, int q_per_b,
                            int C, int radius, int in_dtype, int g_dtype, void* stream) {
-  // shared memory is checked against the card's limit at the launch
-  if (!valid_args(levels, bq, q_per_b, C, radius, 0) || bq % q_per_b != 0 || radius > 4096) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (!valid_args(levels, bq, q_per_b, C, radius)) return (int)cudaErrorInvalidValue;
   Levels lv;
   bool vec = C % 8 == 0 && aligned16(f1);
   for (int l = 0; l < levels; ++l) {

@@ -17,6 +17,19 @@
 
 namespace k9probe {
 
+inline int support_size(int radius) { return (2 * radius + 2) * (2 * radius + 2); }
+
+// d_sup [(2r+2)^2] of one query at one level into shared memory, by the
+// warp's lanes.
+template <typename TG>
+__device__ void support_cotangent(const TG* __restrict__ gl, int radius, const Window& w,
+                                  int h2, int w2, float scale, float* dsup, int lane) {
+  const int sp = 2 * radius + 2;
+  for (int s = lane; s < sp * sp; s += 32) {
+    dsup[s] = dsup_at(gl, radius, w, s / sp, s % sp, h2, w2, scale);  // row u (y), column v (x)
+  }
+}
+
 // ---- 0: the first K9 ----
 template <typename TIn, typename TG>
 __global__ void __launch_bounds__(kWarps * 32)

@@ -1,7 +1,7 @@
-// Shared by the fused lookup (corr_fused.cu, K6/K7) and its d_f2 backward
-// (corr_fused_bwd.cu, K9): a query's window at one level, the tiles of
-// neighbouring queries both kernels cut the query grid into, and the
-// shared-memory and tensor-core primitives of their tile bodies.
+// Shared by the fused lookup (corr_fused.cu, K6/K7) and its backward
+// (corr_fused_bwd.cu, K8/K9): a query's window at one level, the tiles of
+// neighbouring queries these kernels cut the query grid into, and the
+// loads, shared-memory and tensor-core primitives of their tile bodies.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -64,6 +64,32 @@ inline cudaError_t allow_smem(const void* kernel, long bytes) {
   if (err != cudaSuccess) return err;
   if (bytes > optin) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// 4 channels [c, c + 4) of a row as fp32, zero past C; VEC: C % 8 == 0 and
+// 16-byte aligned rows (c is a multiple of 4).
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int c, int C) {
+  if (VEC) return c < C ? *reinterpret_cast<const float4*>(row + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = c + i < C ? row[c + i] : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* __restrict__ row, int c, int C) {
+  if (VEC) {
+    if (c >= C) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const uint2 raw = *reinterpret_cast<const uint2*>(row + c);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = c + i < C ? __bfloat162float(row[c + i]) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {

@@ -33,7 +33,13 @@ too (csrc/corr_fused_bwd.cu), at any batch: each query's window cotangent
 becomes its masked support cotangent / sqrt(C), then
 
 - ``bwd_df1`` (K8, replaces ``_bwd_df1_kernel``): d_f1[q] = sum over levels
-  and support taps of d_sup * f2_l[tap], one launch for all levels;
+  and support taps of d_sup * f2_l[tap]. A block takes a tile of
+  neighbouring queries (the forward's tiles) and 256 channels, and per level
+  the dense cotangent over the box of the tile's valid taps times the box's
+  f2 rows (on the tensor cores for bf16, with the cotangent as a bf16 high
+  and low part); a level whose box exceeds ``MAX_BOX_TAPS`` goes per query.
+  One launch: a block sums all levels in registers in level order and
+  writes its d_f1 once, so no atomics: the same inputs give the same bits;
 - ``bwd_df2`` (K9, replaces ``_bwd_df2_kernel``): d_f2_l[tap] += d_sup *
   f1[q], one launch for all levels. A block takes a tile of neighbouring
   queries at one level (the forward's tiles), contracts their dense
@@ -72,7 +78,7 @@ bwd_df1_launches = 0
 bwd_df2_launches = 0
 
 PLAIN_CHUNK = 2048  # queries per plain matmul chunk: bounds its fp32 volume
-# the tiles of K6 / K7 and K9 (csrc/tiles.cuh kTileY, kTileX, kMaxBoxTaps)
+# the tiles of K6 / K7, K8 and K9 (csrc/tiles.cuh kTileY, kTileX, kMaxBoxTaps)
 TILE_Y, TILE_X = 8, 8
 MAX_BOX_TAPS = 1024
 
@@ -262,9 +268,9 @@ class TileBoxes(NamedTuple):
 
 
 def lookup_tiles(f1, f2s, coords, radius: int = 4) -> list[TileBoxes]:
-    """Each level's tiles of K6 / K7 and K9 (TILE_Y x TILE_X queries of one
-    sample, the last ones ragged) by the kernels' rule, for f1 [B, Q, C], the
-    pooled f2s and coords [B * Q, 2] at level 0."""
+    """Each level's tiles of K6 / K7, K8 and K9 (TILE_Y x TILE_X queries of
+    one sample, the last ones ragged) by the kernels' rule, for f1 [B, Q, C],
+    the pooled f2s and coords [B * Q, 2] at level 0."""
     b, q, _ = f1.shape
     h0, w0 = f2s[0].shape[1], f2s[0].shape[2]
     qh, qw = (h0, w0) if h0 * w0 == q else (1, q)  # the level-0 map, else one row

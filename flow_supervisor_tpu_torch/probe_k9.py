@@ -137,7 +137,7 @@ def main() -> None:
             return run
 
         res = {"gpu": gpu, "shape": name, "batch": b, "queries_per_sample": list(f2s[0].shape[1:3]),
-               "dtype": str(f1.dtype), "k9_paths": cs.k9_paths(f1, f2s, coords), "variants": {}}
+               "dtype": str(f1.dtype), "k9_paths": cs.tile_paths(f1, f2s, coords), "variants": {}}
         for v, vname in enumerate(NAMES):
             if vname in DIAGNOSTIC:
                 continue

@@ -93,12 +93,14 @@ def profile(fn, n: int = 3, trace: str | None = None) -> dict:
         return {"error": "the profiler recorded no device time"}
     by_name: dict[str, float] = {}
     by_cat: dict[str, float] = {}
+    launches_by_cat: dict[str, int] = {}
     spans = []
     for e in kernels:
         us = e.device_time
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         cat = _category(e.name)
         by_cat[cat] = by_cat.get(cat, 0.0) + us
+        launches_by_cat[cat] = launches_by_cat.get(cat, 0) + 1
         spans.append((e.time_range.start, e.time_range.end))
     spans.sort()
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
@@ -120,6 +122,9 @@ def profile(fn, n: int = 3, trace: str | None = None) -> dict:
         "launches_per_forward": len(kernels) / n,
         "by_category_ms_per_forward": {
             k: v / 1000.0 / n for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])
+        },
+        "launches_by_category_per_forward": {
+            k: launches_by_cat[k] / n for k in sorted(by_cat, key=lambda k: -by_cat[k])
         },
         "top_kernels_ms_per_forward": [[k[:120], v / 1000.0 / n] for k, v in top],
     }

@@ -265,10 +265,11 @@ def test_cuda_k8_k9_match_plain(cuda, dtype, b, c, coords_kind):
     _check_k9(pyr, coords, g, dtype)
 
 
-def _k9_inputs_50x90(b, dtype, dev, seed, coords):
+def _k9_inputs_50x90(b, dtype, dev, seed, coords, c=64):
+    """50x90 maps (the supervised crop's level 0) of C channels at coords."""
     rng = np.random.default_rng(seed)
-    f1 = torch.from_numpy(rng.normal(0, 1, (b, 50, 90, 64)).astype(np.float32)).to(dev, dtype)
-    f2 = torch.from_numpy(rng.normal(0, 1, (b, 50, 90, 64)).astype(np.float32)).to(dev, dtype)
+    f1 = torch.from_numpy(rng.normal(0, 1, (b, 50, 90, c)).astype(np.float32)).to(dev, dtype)
+    f2 = torch.from_numpy(rng.normal(0, 1, (b, 50, 90, c)).astype(np.float32)).to(dev, dtype)
     pyr = corr_fused.build_fused_pyramid(f1, f2, 4)
     g = torch.from_numpy(rng.normal(0, 1, (b * 4500, 4 * (2 * R + 1) ** 2)).astype(np.float32))
     return pyr, coords, g.to(dev, dtype)
@@ -309,6 +310,66 @@ def test_cuda_k9_box_beyond_the_limit_adds_per_query(cuda):
     tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R)
     assert not bool(tiles[0].tile_path.any()) and not bool(tiles[1].tile_path.any())
     _check_k9(pyr, coords, g, torch.float32)
+
+
+def _k8_inputs_50x90(b, c, dtype, dev, seed, coords_kind):
+    """C channels; coords smooth (the pixel grid plus N(0, 2 px): every tile
+    takes the tile path) or mixed: queries far out (they leave their tile's
+    box) and queries 20 px off (their tile's level-0 box exceeds
+    MAX_BOX_TAPS and goes per query)."""
+    coords = _smooth_coords(b, 50, 90, seed, dev)
+    if coords_kind == "mixed":
+        coords[::997] = torch.tensor([1e9, -1e9], device=dev)
+        diverging = [bi * 4500 + qy * 90 + qx for bi in range(b) for qy in (12, 24)
+                     for qx in (10, 40, 60)]
+        coords[diverging] += 20.0
+    return _k9_inputs_50x90(b, dtype, dev, seed + 1, coords, c)
+
+
+def _check_k8(got, want, dtype):
+    """fp32: sums of <= 400 products in another order (rtol 1e-5, atol 1e-4);
+    bf16: within 2^-8 of the plain fp32 value (one bf16 ulp at most: the
+    rounding of an exact sum is within half an ulp) plus 1e-4 for the
+    cotangent's bf16 high and low parts (about 16 bits) over those sums."""
+    assert got.dtype == dtype
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=rtol)
+
+
+# K8's tile design at 50x90: B=1 and 2 (84 and 168 blocks), B=8 (672); B=2
+# puts tiles at the ragged edges and on both samples; mixed coords run the
+# tile and the per-query bodies in one launch; C = 36 the CUDA-core body with
+# scalar loads, 256 one slice, 320 a ragged second slice. Two launches must
+# give the same bits (no atomics, a fixed order of sums)
+@pytest.mark.cuda
+@pytest.mark.parametrize("coords_kind", ["smooth", "mixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c", [(1, 256), (2, 256), (8, 256), (2, 36), (8, 36), (1, 320)])
+def test_cuda_k8_tile_and_per_query_paths_match_plain(cuda, coords_kind, dtype, b, c):
+    pyr, coords, g = _k8_inputs_50x90(b, c, dtype, cuda, 50 + b + c, coords_kind)
+    tile, per_query = _paths(pyr, coords)
+    assert tile > 0 and (per_query > 0) == (coords_kind == "mixed")
+    got = corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, R)
+    want = corr_fused.bwd_df1_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g, R)
+    _check_k8(got, want, dtype)
+    assert torch.equal(corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, R), got)
+
+
+# uniform coords over the map and beyond: every level-0 and level-1 tile's
+# box (the whole map) exceeds MAX_BOX_TAPS, so those levels go per query and
+# levels 2-3 take the tile path, into one accumulator
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k8_box_beyond_the_limit_goes_per_query(cuda, dtype):
+    rng = np.random.default_rng(42)  # K9's coords: no level-0 or level-1 tile on the tile path
+    coords = torch.from_numpy(np.stack([rng.uniform(-20, 110, 4500), rng.uniform(-20, 70, 4500)], 1)
+                              .astype(np.float32)).to(cuda)
+    pyr, coords, g = _k9_inputs_50x90(1, dtype, cuda, 45, coords)
+    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R)
+    assert not bool(tiles[0].tile_path.any()) and bool(tiles[3].tile_path.any())
+    got = corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, R)
+    want = corr_fused.bwd_df1_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g, R)
+    _check_k8(got, want, dtype)
 
 
 @pytest.mark.cuda
