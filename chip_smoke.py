@@ -24,18 +24,24 @@ each printing one JSON line per check or configuration:
    with queries that send their tile to the per-query path, each case with
    its (level, tile) pairs by path; K8's bf16 results within one bf16 ulp
    of the plain fp32 value, and K8 launched twice (bit-identical outputs);
+   K4 bit-identical to its plain version and K3 launched twice
+   (bit-identical statistics) at the fnet shapes, ragged ones, C = 36 (the
+   scalar body), B = 20 and M = 1, each on the body its rule picks;
 2. parity: a 216x512, 12-iteration fp32 forward on the card (kernels) against
    the same model and weights on the CPU (plain versions), for each lookup
    backend (plane, fused, pallas);
 3. main_path: for each configuration (lookup backend, batch) one 448x1024,
    12-iteration bf16 forward with the launch counters reset, which must
-   launch each kernel the expected number of times and run every K2 launch
-   on the conv's tensor-core body; then pairs/s over 20 back-to-back
+   launch each kernel the expected number of times, run every K2 launch
+   on the conv's tensor-core body and every K3 / K4 launch on the norm's
+   vector body; then pairs/s over 20 back-to-back
    forwards, peak device memory, device time and idle share of one forward
    (torch.profiler), and the configuration's lookup
    kernel timed against its plain version on the inputs of the forward's
    last lookup, with its share of the bound (and the library call's, where
-   there is one); the encoder kernels K2-K4 are timed at B=1. Kernel, plain
+   there is one); the encoder kernels K2-K4 are timed at B=1, and K3 / K4
+   also at the fnet shapes of fused B=8 (16 images) and of the chairs
+   Baseline step (20 images at 368x496). Kernel, plain
    and library times are device time (the timed calls queue behind a spin
    kernel); the forward's time is back to back, host included;
    own_paths: K5 and K11 through their own public functions
@@ -64,7 +70,7 @@ each printing one JSON line per check or configuration:
    (B=10, 368x496, unfrozen batch norm; K8/K9 timed at its shape too); every
    K2 launch of a step must run the conv's tensor-core body. Beside K8's and
    K9's times, the share of their (level, tile) pairs that took the tile
-   path.
+   path; every K3 / K4 launch of a step must run the norm's vector body.
 
 Then it prints K2's and K5's device time per fnet stage shape beside
 ``F.conv2d``'s, a JSON line of the kernels (launches in their configuration's
@@ -227,8 +233,25 @@ HOME_CONFIG = {"corr_plane": ("plane", 1), "conv3x3_stats": ("plane", 1),
 # fnet shapes at 448x1024 (B=1: the pair runs through fnet together) and how
 # many times one forward runs each kernel there
 CONV_SHAPES = [((2, 224, 512, 64), 64, 4), ((2, 112, 256, 96), 96, 3), ((2, 56, 128, 128), 128, 3)]
-STATS_SHAPES = [((2, 224, 512, 64), 1), ((2, 112, 256, 96), 2), ((2, 56, 128, 128), 2)]
-APPLY_SHAPES = [((2, 224, 512, 64), 5), ((2, 112, 256, 96), 5), ((2, 56, 128, 128), 5)]
+# the fnet's instance norms: (stride, C, K3 calls, K4 calls) per stage, the
+# stem and layer1 at 1/2 (C = 64), layer2 at 1/4 (96), layer3 at 1/8 (128)
+FNET_NORMS = ((2, 64, 1, 5), (4, 96, 2, 5), (8, 128, 2, 5))
+# K3 / K4 are also timed at the fnet's norm shapes of the fused B=8 forward
+# (16 images at 448x1024) and the chairs Baseline step (20 images at
+# 368x496), where a forward or step runs them as often as at B=1
+NORM_TIMING = {"fused_b8": (16, MAIN_HW), "chairs_b10": (2 * CHAIRS_BATCH, CHAIRS_HW)}
+# phase 1's K3 / K4 shapes: the fnet's at B=1, M not a multiple of a block's
+# rows (55x127, 37x50), C = 36 (the scalar body), the chairs batch's 20
+# images (its stem 184x248 and layer3 46x62), M = 1
+NORM_CHECK_SHAPES = [(2, MAIN_HW[0] // s, MAIN_HW[1] // s, c) for s, c, _, _ in FNET_NORMS] + [
+    (1, 55, 127, 64), (2, 37, 50, 96), (2, 46, 62, 36), (20, 184, 248, 64), (20, 46, 62, 128),
+    (3, 1, 1, 64), (2, 1, 1, 36)]
+
+
+def fnet_norm_shapes(images: int, hw) -> list:
+    """(shape, K3 calls, K4 calls) of the fnet's instance norms for `images`
+    images of hw, per encoder call."""
+    return [((images, hw[0] // s, hw[1] // s, c), n3, n4) for s, c, n3, n4 in FNET_NORMS]
 
 
 def emit(obj) -> None:
@@ -263,6 +286,7 @@ def reset_launch_counts() -> None:
     )
 
     corr_plane.launches = conv3x3.launches = norm.stats_launches = norm.apply_launches = 0
+    norm.vector_launches = 0
     corr_fused.all_launches = corr_fused.level_launches = corr_lookup_v2.launches = 0
     corr_fused.bwd_df1_launches = corr_fused.bwd_df2_launches = 0
     conv3x3.bare_launches = corr_lookup.launches = conv3x3.tc_launches = 0
@@ -277,6 +301,17 @@ def check_tc_launches(where: str, want: int) -> int:
         raise AssertionError(f"{where}: {conv3x3.tc_launches} conv launches on the tensor-core "
                              f"body, expected {want}")
     return conv3x3.tc_launches
+
+
+def check_vector_launches(where: str, want: int) -> int:
+    """Raises unless exactly `want` launches of K3 / K4 since the last reset
+    ran the norm's vector body (every norm of the model should)."""
+    from flow_supervisor_tpu_torch.kernels import norm
+
+    if norm.vector_launches != want:
+        raise AssertionError(f"{where}: {norm.vector_launches} norm launches on the vector "
+                             f"body, expected {want}")
+    return norm.vector_launches
 
 
 def time_ms(fn, reps=20, warm=3, device_only=False) -> float:
@@ -712,23 +747,36 @@ def phase_kernels(dev):
                            "dtype": str(dtype), "err": e, "stats_err": es, "tensor_cores": bf16})
             if bf16 and n:
                 errs["conv3x3_stats"] = max(errs["conv3x3_stats"], e)
-        # K3 / K4, relu on and off
-        for shape, _ in STATS_SHAPES:
+        # K3 / K4, relu on and off: K4 has the plain version's arithmetic, so
+        # its bits; K3's fp32 sums run in another order (atol 1e-5), in a fixed
+        # one, so a second launch gives the same bits
+        for shape in NORM_CHECK_SHAPES:
             x = (3 * torch.randn(*shape, generator=gen) + 1.5).to(dev, dtype)
+            vec, vec0 = norm.vector_body(x), norm.vector_launches
             st = norm.instance_norm_stats(x)
             st_ref = norm.instance_norm_stats_plain(x)
             e = check_close(f"K3 {shape} {dtype}", st, st_ref, 0.0, 1e-5)
-            checks.append({"kernel": "norm_stats", "shape": list(shape), "dtype": str(dtype), "err": e})
+            if not torch.equal(norm.instance_norm_stats(x), st):
+                raise AssertionError(f"K3 {shape} {dtype}: a second launch gave other bits")
+            checks.append({"kernel": "norm_stats", "shape": list(shape), "dtype": str(dtype),
+                           "err": e, "vector_body": vec, "same_bits_twice": True})
             for relu in (False, True):
                 y = norm.instance_norm_apply(x, st_ref, relu)
                 y_ref = norm.instance_norm_apply_plain(x, st_ref, relu)
-                ea = check_close(f"K4 {shape} relu={relu} {dtype}", y, y_ref, rtol, 1e-5)
+                ea = float((y.float() - y_ref.float()).abs().max())
+                if not torch.equal(y, y_ref):
+                    raise AssertionError(f"K4 {shape} relu={relu} {dtype}: not the plain "
+                                         f"version's bits, max abs err {ea}")
                 checks.append({"kernel": "norm_apply", "shape": list(shape), "dtype": str(dtype),
-                               "relu": relu, "err": ea})
+                               "relu": relu, "err": ea, "vector_body": vec, "plain_bits": True})
                 if bf16:
                     errs["norm_apply"] = max(errs["norm_apply"], ea)
+            if norm.vector_launches - vec0 != 4 * vec:
+                raise AssertionError(f"K3/K4 {shape} {dtype}: {norm.vector_launches - vec0} "
+                                     f"vector-body launches of 4, vector_body {vec}")
             if bf16:
                 errs["norm_stats"] = max(errs["norm_stats"], e)
+            del x, st, st_ref, y, y_ref
         # K5: the fnet stage shapes and a ragged one, relu off and on; fp32:
         # only the summation order of 9*C <= 1152 terms differs
         for shape, cout, n in CONV_SHAPES + [((2, 55, 90, 128), 72, 0), ((2, 46, 155, 96), 72, 0)]:
@@ -899,9 +947,10 @@ def lookup_timing(backend, batch, pyramid, coords, dev):
                   "bytes_per_call": nbytes, "ops_per_call": ops, **extra}
 
 
-def encoder_timing(dev):
-    """K2-K4 against their plain versions and a library call, at the fnet
-    shapes of a B=1 forward, as ms per forward (per-call time x calls)."""
+def encoder_timing(dev, images=2, hw=MAIN_HW, conv=True):
+    """K2-K4 (K3 / K4 alone without conv) against their plain versions and a
+    library call, at the fnet shapes of `images` images of hw (a B=1 forward:
+    2 at 448x1024), as ms per encoder call (per-call time x calls)."""
     import torch
     import torch.nn.functional as F
 
@@ -909,9 +958,9 @@ def encoder_timing(dev):
 
     gen = torch.Generator().manual_seed(5)
     bf16 = torch.bfloat16
+    names = ("conv3x3_stats", "norm_stats", "norm_apply") if conv else ("norm_stats", "norm_apply")
     times = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                 "t_bytes": 0.0, "t_ops": 0.0, "per_call": []}
-             for n in ("conv3x3_stats", "norm_stats", "norm_apply")}
+                 "t_bytes": 0.0, "t_ops": 0.0, "per_call": []} for n in names}
 
     def add(name, n, k, p, lib, nbytes, ops, shape):
         t = times[name]
@@ -922,9 +971,9 @@ def encoder_timing(dev):
         t["bound_ms"] += n * max(tb, to)
         t["t_bytes"] += n * tb
         t["t_ops"] += n * to
-        t["per_call"].append([list(shape), k, p, lib])
+        t["per_call"].append([list(shape), k, p, lib, max(tb, to)])
 
-    for shape, cout, n in CONV_SHAPES:
+    for shape, cout, n in CONV_SHAPES if conv else ():
         bsz, h, w, c = shape
         x = torch.randn(*shape, generator=gen).to(dev, bf16)
         wt = (0.05 * torch.randn(3, 3, c, cout, generator=gen)).to(dev, bf16)
@@ -937,7 +986,7 @@ def encoder_timing(dev):
         lib = time_ms(lambda: F.conv2d(xn, wn, b, padding=1), device_only=True)
         nbytes = 2 * (x.numel() + wt.numel() + cout + bsz * h * w * cout) + bsz * 2 * cout * 4
         add("conv3x3_stats", n, k, p, lib, nbytes, 2 * bsz * h * w * cout * 9 * c, shape)
-    for (shape, n_stats), (_, n_apply) in zip(STATS_SHAPES, APPLY_SHAPES):
+    for shape, n_stats, n_apply in fnet_norm_shapes(images, hw):
         bsz, _, _, c = shape
         x = torch.randn(*shape, generator=gen).to(dev, bf16)
         st = norm.instance_norm_stats_plain(x)
@@ -951,8 +1000,10 @@ def encoder_timing(dev):
         # no call applies given statistics: the whole norm (statistics and apply)
         lib = time_ms(lambda: F.instance_norm(xn), device_only=True)
         add("norm_apply", n_apply, k, p, lib, 2 * x.numel() * 2 + bsz * 2 * c * 4, 3 * x.numel(), shape)
+        del x, xn, st
     for t in times.values():
         t["bound_by"] = "bytes" if t.pop("t_bytes") >= t.pop("t_ops") else "operations"
+    torch.cuda.empty_cache()
     return times
 
 
@@ -990,6 +1041,8 @@ def phase_main_path(dev):
         if got != want:
             raise AssertionError(f"{backend} B={batch}: launch counts {got} != expected {want}")
         tc = check_tc_launches(f"{backend} B={batch}", ENCODER_LAUNCHES["conv3x3_stats"])
+        check_vector_launches(f"{backend} B={batch}",
+                              ENCODER_LAUNCHES["norm_stats"] + ENCODER_LAUNCHES["norm_apply"])
         launches[(backend, batch)] = got
         # the coords of the last (12th) lookup: coords0 + the flow after 11 updates
         h8, w8 = MAIN_HW[0] // 8, MAIN_HW[1] // 8
@@ -1025,6 +1078,12 @@ def phase_main_path(dev):
         t["launches"] = launches[("plane", 1)][name]
     times[("plane", 1)].update(enc)
     emit({"phase": "main_path", "ok": True, "encoder_kernels_b1": enc})
+    for name, (images, hw) in NORM_TIMING.items():
+        t = encoder_timing(dev, images, hw, conv=False)
+        for k, v in t.items():
+            v["launches_per_encoder_call"] = ENCODER_LAUNCHES[k]
+        emit({"phase": "main_path", "ok": True, "config": name, "images": images, "hw": list(hw),
+              "norm_kernels": t})
     peaks = {(r["lookup_backend"], r["batch"]): r["peak_mem_bytes"] for r in summary}
     saved = peaks[("plane", 8)] - peaks[("fused", 8)]
     emit({"phase": "main_path", "ok": True, "peak_mem_saved_fused_vs_plane_b8_bytes": saved})
@@ -1451,6 +1510,7 @@ def train_main(dev, kind: str, batches, **shapes):
     if got != want:
         raise AssertionError(f"{kind} train main path: launch counts {got} != expected {want}")
     tc = check_tc_launches(f"{kind} train main path", want["conv3x3_stats"])
+    check_vector_launches(f"{kind} train main path", want["norm_stats"] + want["norm_apply"])
     if len(rows) != TRAIN_STEPS_MAIN or not all(
             math.isfinite(v) for r in rows for v in r.values() if isinstance(v, float)):
         raise AssertionError(f"{kind} train main path: bad metrics rows {rows}")

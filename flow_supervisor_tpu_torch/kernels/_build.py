@@ -64,13 +64,13 @@ SIGNATURES = {
     # vol (level l, [BQ, h2, w2]), h2, w2, coords (level 0), level, out, out_stride, bq,
     # radius, in_dtype, stream
     "fst_corr_lookup_level": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P],
-    # x, partials, stats, B, M, C, dtype, eps, stream
-    "fst_instance_norm_stats": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # x, stats, y, B, M, C, dtype, relu, stream
-    "fst_instance_norm_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # partial-sum rows per sample: (H, W) for the conv, (M,) for the norm
+    # x, partials, counters, stats, B, M, C, dtype, vec (the vector body), eps, stream
+    "fst_instance_norm_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # x, stats, y, B, M, C, dtype, vec, relu, stream
+    "fst_instance_norm_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # partial-sum rows per sample: (H, W) for the conv, (B, M, C, dtype, vec) for the norm
     "fst_conv3x3_partials": [_I, _I],
-    "fst_instance_norm_chunks": [_I],
+    "fst_instance_norm_chunks": [_I, _I, _I, _I, _I],
 }
 
 # dtype codes shared with csrc/common.cuh

@@ -9,8 +9,11 @@ K3 (statistics) and K4 (apply), counterpart of flow_supervisor_tpu/kernels/norm.
   conv3x3 + instance-norm pair (kernels/conv3x3.py).
 
 Each wrapper takes its plain PyTorch version only for CPU tensors; for CUDA
-tensors it launches the kernel or raises. ``stats_launches`` /
-``apply_launches`` count kernel launches.
+tensors it launches the kernel or raises. Both kernels have a vector body
+(16-byte loads, 8 bf16 or 4 fp32 channels a thread) for the inputs that
+``vector_body`` accepts (every norm of the model) and a scalar body for the
+rest. ``stats_launches`` / ``apply_launches`` count kernel launches,
+``vector_launches`` those of K3 and K4 that ran the vector body.
 
 ``instance_norm`` is a ``torch.autograd.Function``: forward K3 + K4, backward
 the closed-form ``norm_backward`` from the saved statistics (counterpart of
@@ -26,6 +29,9 @@ EPS = 1e-5
 
 stats_launches = 0
 apply_launches = 0
+vector_launches = 0
+
+_counters: dict = {}  # (device, stream) -> K3's per-sample counters (_sample_counters)
 
 
 def instance_norm_stats_plain(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
@@ -50,6 +56,25 @@ def instance_norm_apply_plain(
     return y.to(x.dtype)
 
 
+def vector_body(x: torch.Tensor) -> bool:
+    """Whether K3 / K4 on x [B, H, W, C] run the vector body: C a multiple
+    of one 16-byte vector (8 bf16 or 4 fp32 channels) and x 16-byte aligned
+    (csrc/norm.cu ``vector_ok``); else the scalar body."""
+    return x.shape[3] % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
+
+
+def _sample_counters(x: torch.Tensor, b: int) -> torch.Tensor:
+    """K3's per-sample counters on x's device and stream (at least b of them):
+    kept across calls, since each launch leaves them at 0 and zeroing them
+    anew would cost a launch."""
+    key = (x.device, _build.stream_of(x))
+    counters = _counters.get(key)
+    if counters is None or counters.numel() < b:
+        counters = torch.zeros(max(b, 64), dtype=torch.int32, device=x.device)
+        _counters[key] = counters
+    return counters
+
+
 def _check_stats(stats: torch.Tensor, x: torch.Tensor, what: str) -> None:
     b, _, _, c = x.shape
     if (
@@ -65,22 +90,23 @@ def _check_stats(stats: torch.Tensor, x: torch.Tensor, what: str) -> None:
 
 def instance_norm_stats(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """K3: statistics of x [B, H, W, C] -> [B, 2, C] float32."""
-    global stats_launches
+    global stats_launches, vector_launches
     _build.check_nhwc(x, "instance_norm_stats")
     if not _build.uses_kernel("instance_norm_stats", x):
         return instance_norm_stats_plain(x, eps)
     b, h, w, c = x.shape
-    lib = _build.lib()
-    parts = lib.fst_instance_norm_chunks(h * w)
-    partials = torch.empty((b, parts, 2, c), dtype=torch.float32, device=x.device)
+    lib, code, vec = _build.lib(), _build.dtype_code(x), vector_body(x)
     stats = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device):  # the grid, so the partial rows, follow x's card
+        parts = lib.fst_instance_norm_chunks(b, h * w, c, code, int(vec))
+        partials = torch.empty((b, parts, 2, c), dtype=torch.float32, device=x.device)
         rc = lib.fst_instance_norm_stats(
-            x.data_ptr(), partials.data_ptr(), stats.data_ptr(), b, h * w, c,
-            _build.dtype_code(x), eps, _build.stream_of(x),
+            x.data_ptr(), partials.data_ptr(), _sample_counters(x, b).data_ptr(),
+            stats.data_ptr(), b, h * w, c, code, int(vec), eps, _build.stream_of(x),
         )
     _build.check(rc, "instance_norm_stats")
     stats_launches += 1
+    vector_launches += vec
     return stats
 
 
@@ -88,20 +114,22 @@ def instance_norm_apply(
     x: torch.Tensor, stats: torch.Tensor, relu: bool = False
 ) -> torch.Tensor:
     """K4: normalize x [B, H, W, C] by stats [B, 2, C] (+ relu), in x's dtype."""
-    global apply_launches
+    global apply_launches, vector_launches
     _build.check_nhwc(x, "instance_norm_apply")
     _check_stats(stats, x, "instance_norm_apply")
     if not _build.uses_kernel("instance_norm_apply", x, stats):
         return instance_norm_apply_plain(x, stats, relu)
     b, h, w, c = x.shape
     y = torch.empty_like(x)
+    vec = vector_body(x)
     with torch.cuda.device(x.device):
         rc = _build.lib().fst_instance_norm_apply(
             x.data_ptr(), stats.data_ptr(), y.data_ptr(), b, h * w, c,
-            _build.dtype_code(x), int(relu), _build.stream_of(x),
+            _build.dtype_code(x), int(vec), int(relu), _build.stream_of(x),
         )
     _build.check(rc, "instance_norm_apply")
     apply_launches += 1
+    vector_launches += vec
     return y
 
 

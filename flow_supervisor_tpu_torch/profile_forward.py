@@ -29,10 +29,12 @@ CATEGORIES = (
     ("K10 corr_window", ("corr_window_kernel",)),
     ("K8 bwd_df1", ("bwd_df1_kernel",)),
     ("K9 bwd_df2", ("bwd_df2_kernel",)),
-    # both bodies of csrc/conv3x3.cu; before cuDNN's, whose keys match "conv"
-    ("K2 conv3x3_stats / K5 conv3x3", ("conv3x3_kernel", "conv3x3_tc_kernel")),
+    # both bodies of csrc/conv3x3.cu and K2's statistics finalize (in
+    # csrc/norm.cu); before cuDNN's, whose keys match "conv"
+    ("K2 conv3x3_stats / K5 conv3x3", ("conv3x3_kernel", "conv3x3_tc_kernel",
+                                       "stats_finalize_kernel")),
     ("K11 corr_lookup_level", ("corr_lookup_level_kernel",)),
-    ("K3/K4 instance norm", ("stats_partial_kernel", "stats_finalize_kernel", "apply_kernel")),
+    ("K3/K4 instance norm", ("norm_stats_kernel", "norm_apply_kernel")),
     ("cuDNN conv", ("fprop", "conv", "implicit", "winograd", "cudnn")),
     ("matmul", ("gemm", "cutlass")),
 )

@@ -5,7 +5,8 @@ no JAX, so it also runs on a GPU machine without JAX, from the repo root:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-fp32 comparisons run with TF32 off; bf16 ones allow 1 bf16 ulp (rtol 1e-2).
+fp32 comparisons run with TF32 off; bf16 ones allow 1 bf16 ulp (rtol 1e-2),
+except K4's, which must give the plain version's bits in both dtypes.
 """
 import numpy as np
 import pytest
@@ -114,9 +115,75 @@ def test_cuda_k3_k4_match_plain(cuda, dtype, relu):
     st_ref = norm.instance_norm_stats_plain(x)
     torch.testing.assert_close(st, st_ref, rtol=1e-5, atol=1e-5)
     y = norm.instance_norm_apply(x, st_ref, relu)
-    y_ref = norm.instance_norm_apply_plain(x, st_ref, relu)
-    tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
-    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+    assert torch.equal(y, norm.instance_norm_apply_plain(x, st_ref, relu))
+
+
+# the fnet's norm shapes (the stem's at full size), M not a multiple of a
+# block's rows, C = 36 (the scalar body), B = 20 (the chairs batch's 20
+# images), M = 1, and channel groups beyond one block (scalar C = 530: two
+# K3 blocks across the channels, three K4 ones; fp32 C = 2052 on the vector
+# body: 513 groups of 4)
+NORM_SHAPES = [(2, 224, 512, 64), (2, 14, 32, 96), (2, 7, 16, 128), (1, 55, 127, 64),
+               (2, 46, 62, 36), (20, 46, 62, 128), (3, 1, 1, 64), (2, 1, 1, 36), (1, 5, 7, 530),
+               (1, 3, 4, 2052)]
+
+
+def _norm_input(shape, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (3 * torch.randn(*shape, generator=g) + 1.5).to(dev, dtype)
+
+
+# K4 repeats the plain version's arithmetic ((x - mean) * r rounded twice,
+# relu, a round-to-nearest cast), so its output has the same bits
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", NORM_SHAPES, ids=[str(s) for s in NORM_SHAPES])
+def test_cuda_k4_gives_the_plain_bits(cuda, shape, dtype, relu):
+    x = _norm_input(shape, dtype, cuda, 70)
+    st = norm.instance_norm_stats_plain(x)
+    assert torch.equal(norm.instance_norm_apply(x, st, relu), norm.instance_norm_apply_plain(x, st, relu))
+
+
+# fp32 sums over H*W in another order: atol 1e-5 (rtol 0) on (mean, r) of
+# x ~ 3 N(0, 1) + 1.5; a fixed order of sums, so two launches give the same bits
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", NORM_SHAPES, ids=[str(s) for s in NORM_SHAPES])
+def test_cuda_k3_matches_plain_and_repeats(cuda, shape, dtype):
+    x = _norm_input(shape, dtype, cuda, 71)
+    st = norm.instance_norm_stats(x)
+    torch.testing.assert_close(st, norm.instance_norm_stats_plain(x), rtol=0, atol=1e-5)
+    assert torch.equal(norm.instance_norm_stats(x), st)
+
+
+# vector body: C a multiple of 8 (bf16) or 4 (fp32) channels and x 16-byte
+# aligned; x offset by one element from an allocation takes the scalar body
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,dtype,offset,vec", [
+    (64, torch.bfloat16, 0, True), (96, torch.bfloat16, 0, True), (36, torch.bfloat16, 0, False),
+    (4, torch.bfloat16, 0, False), (64, torch.bfloat16, 1, False), (36, torch.float32, 0, True),
+    (4, torch.float32, 0, True), (6, torch.float32, 0, False), (64, torch.float32, 1, False),
+])
+def test_cuda_norm_body_counter_follows_the_rule(cuda, c, dtype, offset, vec):
+    shape = (2, 9, 11, c)
+    n = 2 * 9 * 11 * c
+    flat = _norm_input((n + offset,), dtype, cuda, 72)
+    x = flat[offset:].view(shape)
+    assert norm.vector_body(x) == vec
+    counts = (norm.stats_launches, norm.apply_launches, norm.vector_launches)
+    st = norm.instance_norm_stats(x)
+    y = norm.instance_norm_apply(x, st, True)
+    assert (norm.stats_launches, norm.apply_launches, norm.vector_launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 2 * vec)
+    torch.testing.assert_close(st, norm.instance_norm_stats_plain(x), rtol=0, atol=1e-5)
+    assert torch.equal(y, norm.instance_norm_apply_plain(x, st, True))
+    if not vec:  # the launchers refuse the vector body where the rule does
+        lib = norm._build.lib()
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fst_instance_norm_apply(x.data_ptr(), st.data_ptr(), y.data_ptr(), 2, 99, c,
+                                         norm._build.dtype_code(x), 1, 0, stream)
+        assert rc != 0
 
 
 def _fused_inputs(b, c, dtype, dev, seed):
@@ -370,6 +437,31 @@ def test_cuda_k8_box_beyond_the_limit_goes_per_query(cuda, dtype):
     got = corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, R)
     want = corr_fused.bwd_df1_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g, R)
     _check_k8(got, want, dtype)
+
+
+# K8's per-query body at more shapes: uniform coords over the map and 20 px
+# beyond send every level-0 tile per query (its box is the whole map, over
+# MAX_BOX_TAPS): the chairs level 0 (46x62) at B=2, C = 36 (the CUDA-core body
+# with scalar loads) and C = 320 (a ragged second channel slice) at B=1;
+# two launches give the same bits
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h8,w8,c", [(2, 46, 62, 256), (1, 37, 53, 36), (1, 64, 64, 320)])
+def test_cuda_k8_per_query_body_at_more_shapes(cuda, dtype, b, h8, w8, c):
+    rng = np.random.default_rng(60 + c)
+    q = b * h8 * w8
+    coords = torch.from_numpy(np.stack([rng.uniform(-20, w8 + 20, q), rng.uniform(-20, h8 + 20, q)], 1)
+                              .astype(np.float32)).to(cuda)
+    f1 = torch.from_numpy(rng.normal(0, 1, (b, h8, w8, c)).astype(np.float32)).to(cuda, dtype)
+    f2 = torch.from_numpy(rng.normal(0, 1, (b, h8, w8, c)).astype(np.float32)).to(cuda, dtype)
+    pyr = corr_fused.build_fused_pyramid(f1, f2, 4)
+    g = torch.from_numpy(rng.normal(0, 1, (q, 4 * (2 * R + 1) ** 2)).astype(np.float32)).to(cuda, dtype)
+    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R)
+    assert not bool(tiles[0].tile_path.any())
+    got = corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, R)
+    want = corr_fused.bwd_df1_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g, R)
+    _check_k8(got, want, dtype)
+    assert torch.equal(corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, R), got)
 
 
 @pytest.mark.cuda

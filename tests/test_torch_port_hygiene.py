@@ -37,8 +37,9 @@ print(json.dumps({
 _LAUNCHES = """[corr_plane.launches, conv3x3.launches, norm.stats_launches,
     norm.apply_launches, conv3x3.bare_launches, corr_fused.all_launches,
     corr_fused.level_launches, corr_fused.bwd_df1_launches, corr_fused.bwd_df2_launches,
-    corr_lookup_v2.launches, corr_lookup.launches, conv3x3.tc_launches]"""
-N_KERNELS = 12  # eleven kernels' counters and the conv's tensor-core body
+    corr_lookup_v2.launches, corr_lookup.launches, conv3x3.tc_launches,
+    norm.vector_launches]"""
+N_KERNELS = 13  # eleven kernels' counters, the conv's tensor-core body, the norm's vector body
 _LEAKED = """sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "flax", "flow_supervisor_tpu", "cv2", "optax", "orbax", "yaml"))"""
 _CPU_FORWARD = _CPU_FORWARD.replace("LAUNCHES", _LAUNCHES).replace("LEAKED", _LEAKED)
