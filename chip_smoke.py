@@ -13,12 +13,15 @@ each printing one JSON line per check or configuration:
 
 1. kernels: K1 (corr_plane), K2 (conv3x3 + stats), K3/K4 (instance norm),
    K5 (conv3x3, no statistics, relu on and off), K6/K7 (corr_fused, all
-   levels / per level), K10 (corr_window), K8/K9 (the fused lookup's
-   backward, bwd_df1 / bwd_df2) and K11 (corr_lookup, the 5-D volume's
-   window) on the card against their plain PyTorch versions at the main
-   paths' shapes and ragged ones, fp32 (TF32 off) and bf16, with lookup
-   coords in bounds, partly out and far out of bounds; K1 also at radius 1
-   and 3, B=2, one level, and launched twice (bit-identical outputs); K6/K7,
+   levels / per level), K10 (corr_window: window mode, all levels, and
+   support mode, one level), K8/K9 (the fused lookup's backward, bwd_df1 /
+   bwd_df2) and K11 (corr_lookup, the 5-D volume's window) on the card
+   against their plain PyTorch versions at the main paths' shapes and
+   ragged ones, fp32 (TF32 off) and bf16, with lookup coords in bounds,
+   partly out and far out of bounds; K1, K10 and K11 (one body,
+   csrc/window.cuh) at radius 4 (compiled) and 3 (the radius an argument),
+   K10's support mode bit-identical to the plain version; K1 also at radius 1,
+   B=2, one level, and launched twice (bit-identical outputs); K6/K7,
    K8 and K9 also at smooth coords (the pixel grid plus N(0, 2 px), their
    tile path), B=1 and 2 (K7 and K8 also 8), C = 36, 256 and 320, and mixed
    with queries that send their tile to the per-query path, each case with
@@ -39,7 +42,9 @@ each printing one JSON line per check or configuration:
    (torch.profiler), and the configuration's lookup
    kernel timed against its plain version on the inputs of the forward's
    last lookup, with its share of the bound (and the library call's, where
-   there is one); the encoder kernels K2-K4 are timed at B=1, and K3 / K4
+   there is one), K1 and K10 (fp32 outputs; K1 also bf16) checked bit for
+   bit against their plain versions on those inputs; the encoder kernels
+   K2-K4 are timed at B=1, and K3 / K4
    also at the fnet shapes of fused B=8 (16 images) and of the chairs
    Baseline step (20 images at 368x496). Kernel, plain
    and library times are device time (the timed calls queue behind a spin
@@ -48,7 +53,7 @@ each printing one JSON line per check or configuration:
    (``conv3x3_fused``, ``corr_pyramid_lookup_pallas``), the JAX package's
    only callers, with the launch counters reset: K5 at the fnet stage shapes
    of a 448x1024 forward (10 calls), K11 on the 448x1024 volume pyramid at
-   the coords of a forward's 12 lookups (48 launches); each timed against its
+   the coords of a forward's 12 lookups (12 launches); each timed against its
    plain version and a library call;
 4. requests: ``run_pair`` on three Sintel-size pairs, writing and reading
    back ``.flo`` files;
@@ -215,13 +220,13 @@ PARITY_STATS_UPDATE_REL = 2e-4
 # once over the 2B images, with 10 3x3 stride-1 conv -> instance-norm -> relu
 # pairs (K2 + K4) and 5 other instance norms (stem, two stride-2 conv1s, two
 # downsamples: K3 + K4); then 12 lookups, each one launch of K1 or K6, or one
-# per level (4) of K7 or K10
+# per level (4) of K7
 ENCODER_LAUNCHES = {"conv3x3_stats": 10, "norm_stats": 5, "norm_apply": 15}
 LOOKUP_KERNEL = {("plane", 1): "corr_plane", ("fused", 1): "corr_fused_all",
                  ("fused", 8): "corr_fused_level", ("pallas", 1): "corr_window",
                  ("plane", 8): "corr_plane"}
 LOOKUP_LAUNCHES = {"corr_plane": ITERS, "corr_fused_all": ITERS,
-                   "corr_fused_level": ITERS * LEVELS, "corr_window": ITERS * LEVELS}
+                   "corr_fused_level": ITERS * LEVELS, "corr_window": ITERS}
 # (backend, batch) in the order they run; plane at B=8 is there for comparison
 CONFIGS = [("plane", 1), ("fused", 1), ("fused", 8), ("pallas", 1), ("plane", 8)]
 # the configuration whose main-path run gives each kernel's launches
@@ -661,14 +666,34 @@ def phase_kernels(dev):
             checks.append({"kernel": "corr_plane", "shape": [h8, w8], "dtype": str(dtype), "err": e})
             if bf16 and main:
                 errs["corr_plane"] = e
-            # K10: a copy of plane values, so equal
-            for lvl, plane in enumerate(planes):
-                cl = (coords * (1.0 / 2 ** lvl)).contiguous()
-                e = check_close(f"K10 {h8}x{w8} level {lvl} {dtype}",
-                                corr_lookup_v2.level_support(plane, cl, RADIUS),
-                                window_support(plane, cl, RADIUS), 0.0, 0.0)
-                checks.append({"kernel": "corr_window", "shape": [h8, w8], "level": lvl,
-                               "dtype": str(dtype), "err": e})
+            # K10, window mode (all levels, fp32 out): the plain support,
+            # combine (same order and rounding) and concat, atol 1e-6;
+            # support mode (one level): a copy of plane values, the plain bits
+            for radius in (RADIUS, 3):
+                c4 = coords.reshape(1, h8, w8, 2)
+                got = corr_lookup_v2.corr_pyramid_lookup_v2(planes, c4, radius)
+                got = got.reshape(h8 * w8, -1)
+                want = corr_plane.corr_lookup_plain(planes, coords, radius, torch.float32)
+                case = f"K10 window r={radius} {h8}x{w8} {dtype}"
+                e = check_close(case, got, want, 0.0, 1e-6)
+                if not torch.equal(corr_lookup_v2.corr_pyramid_lookup_v2(planes, c4, radius)
+                                   .reshape(h8 * w8, -1), got):
+                    raise AssertionError(f"{case}: two launches differ")
+                checks.append({"kernel": "corr_window", "mode": "window", "radius": radius,
+                               "shape": [h8, w8], "dtype": str(dtype), "err": e,
+                               "plain_bits": bool(torch.equal(got, want)), "bit_identical": True})
+                if bf16 and main and radius == RADIUS:
+                    errs["corr_window"] = e
+                for lvl, plane in enumerate(planes):
+                    cl = (coords * (1.0 / 2 ** lvl)).contiguous()
+                    got = corr_lookup_v2.level_support(plane, cl, radius)
+                    if not torch.equal(got, window_support(plane, cl, radius)):
+                        raise AssertionError(f"K10 support r={radius} {h8}x{w8} level {lvl} "
+                                             f"{dtype}: not the plain version's bits")
+                    checks.append({"kernel": "corr_window", "mode": "support", "radius": radius,
+                                   "shape": [h8, w8], "level": lvl, "dtype": str(dtype),
+                                   "err": 0.0, "plain_bits": True})
+            del got, want
             del planes
             # K6: fp32 sums of 256 products in another order (rtol 1e-5 for fp32)
             pyr = corr_fused.build_fused_pyramid(f1, f2, LEVELS)
@@ -803,14 +828,16 @@ def phase_kernels(dev):
             vols = build_corr_pyramid_from_fmaps(f1, f2, LEVELS, dtype)
             del f1, f2
             coords = check_coords(h8 * w8, h8, w8, gen, dev).reshape(1, h8, w8, 2)
-            got = corr_lookup.corr_pyramid_lookup_pallas(vols, coords, RADIUS)
-            want = torch.cat([corr_lookup.lookup_level_plain(v, coords / 2.0 ** i, RADIUS)
-                              for i, v in enumerate(vols)], -1)
-            e = check_close(f"K11 {h8}x{w8} {dtype}", got, want, 1e-5, 1e-5)
-            checks.append({"kernel": "corr_lookup_volume", "shape": [h8, w8], "dtype": str(dtype),
-                           "err": e})
-            if (h8, w8) == main8:
-                errs["corr_lookup_volume"] = max(errs["corr_lookup_volume"], e)
+            for radius in (RADIUS, 3):
+                got = corr_lookup.corr_pyramid_lookup_pallas(vols, coords, radius)
+                want = torch.cat([corr_lookup.lookup_level_plain(v, coords / 2.0 ** i, radius)
+                                  for i, v in enumerate(vols)], -1)
+                e = check_close(f"K11 r={radius} {h8}x{w8} {dtype}", got, want, 1e-5, 1e-5)
+                checks.append({"kernel": "corr_lookup_volume", "radius": radius, "shape": [h8, w8],
+                               "dtype": str(dtype), "err": e,
+                               "plain_bits": bool(torch.equal(got, want))})
+                if (h8, w8) == main8 and radius == RADIUS:
+                    errs["corr_lookup_volume"] = max(errs["corr_lookup_volume"], e)
             del vols, got, want
     torch.cuda.synchronize()
     emit({"phase": "kernels", "ok": True, "checks": checks})
@@ -871,12 +898,12 @@ def grid_sample_library(planes, coords, dev):
 def lookup_timing(backend, batch, pyramid, coords, dev):
     """The configuration's lookup kernel against its plain version (and a
     library call where one computes the same function) on the inputs of the
-    forward's last lookup: ms per forward, and the card's least time for it."""
+    forward's last lookup: ms per forward, and the card's least time for it.
+    K1 and K10 are also held bit for bit against their plain versions there
+    (raises otherwise): fp32 outputs, and K1's bf16 one."""
     import torch
-    import torch.nn.functional as F
 
     from flow_supervisor_tpu_torch.kernels import corr_fused, corr_lookup_v2, corr_plane
-    from flow_supervisor_tpu_torch.ops.corr import window_support
 
     bf16 = torch.bfloat16
     bq = coords.shape[0]
@@ -887,6 +914,12 @@ def lookup_timing(backend, batch, pyramid, coords, dev):
     if backend == "plane":
         planes = pyramid
         shapes = [(lvl, tuple(p.shape[1:])) for lvl, p in enumerate(planes)]
+        extra["equals_plain_bits"] = {}
+        for dtype in (bf16, torch.float32):
+            if not torch.equal(corr_plane.corr_lookup(planes, coords, RADIUS, dtype),
+                               corr_plane.corr_lookup_plain(planes, coords, RADIUS, dtype)):
+                raise AssertionError(f"K1 {backend} B={batch} {dtype}: not the plain bits")
+            extra["equals_plain_bits"][str(dtype)] = True
         k, p = ab_ms(lambda: corr_plane.corr_lookup(planes, coords, RADIUS, bf16),
                      lambda: corr_plane.corr_lookup_plain(planes, coords, RADIUS, bf16))
         nbytes = support_taps(coords, shapes) * 2 + coords.numel() * 4 + out_bytes
@@ -929,14 +962,23 @@ def lookup_timing(backend, batch, pyramid, coords, dev):
     else:  # pallas
         planes = pyramid
         shapes = [(lvl, tuple(p.shape[1:])) for lvl, p in enumerate(planes)]
-        cls = [(coords * (1.0 / 2 ** lvl)).contiguous() for lvl in range(LEVELS)]
-        k, p = ab_ms(lambda: [corr_lookup_v2.level_support(pl, cl, RADIUS) for pl, cl in zip(planes, cls)],
-                     lambda: [window_support(pl, cl, RADIUS) for pl, cl in zip(planes, cls)])
-        sup = 2 * RADIUS + 2
-        nbytes = support_taps(coords, shapes) * 2 + LEVELS * (coords.numel() * 4 + bq * sup * sup * 4)
-        ops = 0
+        c4 = coords.reshape(1, 1, bq, 2)
+        got = corr_lookup_v2.corr_pyramid_lookup_v2(planes, c4, RADIUS).reshape(bq, -1)
+        if not torch.equal(got, corr_plane.corr_lookup_plain(planes, coords, RADIUS)):
+            raise AssertionError(f"K10 {backend} B={batch}: not the plain version's bits")
+        extra["equals_plain_bits"] = {"torch.float32": True}
+        k, p = ab_ms(lambda: corr_lookup_v2.corr_pyramid_lookup_v2(planes, c4, RADIUS),
+                     lambda: corr_plane.corr_lookup_plain(planes, coords, RADIUS))
+        # one launch: the support taps inside the planes (bf16), the coords
+        # once, the fp32 window written once
+        nbytes = support_taps(coords, shapes) * 2 + coords.numel() * 4 + bq * LEVELS * K2 * 4
+        ops = bq * LEVELS * K2 * COMBINE_FLOPS
+        library = grid_sample_library(planes, coords, dev)
+        lib_out = torch.cat([o.reshape(bq, K2) for o in library()], 1)
+        library_err = float((lib_out - got).abs().max())
+        library_ms = time_ms(library, device_only=True) * ITERS
+        del library, lib_out, got
         in_dtype = planes[0].dtype
-        library_err = None
     t_bytes, t_ops = bound(nbytes, ops, in_dtype)
     bound_ms = max(t_bytes, t_ops) * ITERS
     return name, {"ms": k * ITERS, "plain_ms": p * ITERS, "library_ms": library_ms,
@@ -1098,7 +1140,7 @@ def phase_own_paths(dev):
     fnet stage shapes of a 448x1024 forward, each as many times as a forward
     runs a 3x3 stride-1 conv there (10 calls, the shapes tools/exp_pconv.py
     times), and ``corr_pyramid_lookup_pallas`` on the fp32 volume pyramid of
-    a 448x1024 pair at the coords of its forward's 12 lookups (4 launches
+    a 448x1024 pair at the coords of its forward's 12 lookups (one launch
     each), with the launch counters reset. Then each is timed against its
     plain version and a library call: ms per forward's convs and per 12
     lookups, device time."""
@@ -1136,7 +1178,7 @@ def phase_own_paths(dev):
     torch.cuda.synchronize()
     got = launch_counts()
     want = {k: 0 for k in SOURCES}
-    want.update(conv3x3_bare=sum(n for *_, n in convs), corr_lookup_volume=ITERS * LEVELS)
+    want.update(conv3x3_bare=sum(n for *_, n in convs), corr_lookup_volume=ITERS)
     if got != want:
         raise AssertionError(f"own paths: launch counts {got} != expected {want}")
     check_tc_launches("K5 own path", want["conv3x3_bare"])

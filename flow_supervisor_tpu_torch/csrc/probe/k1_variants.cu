@@ -14,7 +14,7 @@
 //      loads query i+1's support into registers while it combines query i
 //   6  1 + the wide output row, with the support rows staged by cp.async as
 //      the aligned 4-byte words that cover each row
-//   7  csrc/corr_plane.cu's body with the radius as an argument
+//   7  csrc/window.cuh's body (the library's K1) with the radius as an argument
 //   8  1 with 4 warps a block
 //   9  1 with 16 warps a block
 //  10  1 + the wide output row of 3
@@ -331,7 +331,7 @@ int dispatch(int variant, const void* const* planes, const int* h2, const int* w
         lib.h2[l] = h2[l];
         lib.w2[l] = w2[l];
       }
-      return (int)::launch<bf16, bf16, -1>(lib, levels, c, o, bq, R, s);
+      return (int)::window_launch<bf16, bf16, -1, ::kWindowMode>(lib, levels, c, o, bq, R, s);
     }
     case 8: return (int)run<4, false, false, false, false>(lv, levels, c, o, bq, s);
     case 9: return (int)run<16, false, false, false, false>(lv, levels, c, o, bq, s);

@@ -52,6 +52,8 @@ SIGNATURES = {
     # f1, d_f2 fp32 accumulators[L], h2[L], w2[L], levels, coords, g, bq, q_per_b, C, radius,
     # in_dtype, g_dtype, stream
     "fst_corr_fused_bwd_df2": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # planes[L], h2[L], w2[L], levels, coords, out (fp32), bq, radius, in_dtype, stream
+    "fst_corr_window_lookup": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     # plane, h2, w2, coords, out, bq, radius, in_dtype, stream
     "fst_corr_window": [_P, _I, _I, _P, _P, _I, _I, _I, _P],
     # x, w_hwio, bias, y, partials, stats, B, H, W, C, Cout, dtype, eps, stream
@@ -61,9 +63,9 @@ SIGNATURES = {
     # the tensor-core body (bf16): the same arguments without dtype
     "fst_conv3x3_tc_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "fst_conv3x3_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # vol (level l, [BQ, h2, w2]), h2, w2, coords (level 0), level, out, out_stride, bq,
-    # radius, in_dtype, stream
-    "fst_corr_lookup_level": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P],
+    # vols[L] (as [BQ, h2, w2]), h2[L], w2[L], levels, coords, out (fp32), bq, radius,
+    # in_dtype, stream
+    "fst_corr_lookup": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     # x, partials, counters, stats, B, M, C, dtype, vec (the vector body), eps, stream
     "fst_instance_norm_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, stats, y, B, M, C, dtype, vec, relu, stream

@@ -7,9 +7,10 @@ replacement for ``ops.corr.corr_pyramid_lookup_gather`` on the volumes of
 For each query of a level's volume [B, h1, w1, h2, w2] (fp32 or bf16) and
 its coords (x, y) at the level's scale, the (2r+1)^2 bilinear window, taps
 outside the plane reading 0, in fp32, channels dx-major: [B, h1, w1,
-(2r+1)^2]. The pyramid lookup runs one launch per level at coords / 2^level
-and writes each level's stripe of [B, h1, w1, L * (2r+1)^2]
-(csrc/corr_lookup.cu, replaces ``_lookup_kernel``). No VJP, as in JAX.
+(2r+1)^2]. The pyramid lookup is one launch for all levels at coords /
+2^level, levels concatenated: [B, h1, w1, L * (2r+1)^2] (csrc/corr_lookup.cu,
+replaces ``_lookup_kernel``; the body is csrc/window.cuh's, shared with K1
+and K10, which read the same [BQ, h2, w2] layout). No VJP, as in JAX.
 
 The plain version is the TPU kernel's padded-window bilinear: each plane
 zero-padded by 2r+2 in fp32, the window base floor(c) - r + pad clamped into
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from flow_supervisor_tpu_torch.kernels import _build
+from flow_supervisor_tpu_torch.kernels.corr_plane import MAX_LEVELS, level_arrays, window_fits
 
 launches = 0
 
@@ -57,64 +59,63 @@ def lookup_level_plain(vol: torch.Tensor, coords: torch.Tensor, radius: int = 4)
     return out.transpose(1, 2).reshape(b, h1, w1, k * k)
 
 
-def _check_args(vol, coords, radius):
-    if vol.dim() != 5 or not vol.is_contiguous() or vol.numel() == 0:
+def _check_args(pyramid, coords, radius):
+    if not 1 <= len(pyramid) <= MAX_LEVELS:
+        raise ValueError(f"corr_lookup: 1..{MAX_LEVELS} levels, got {len(pyramid)}")
+    for vol in pyramid:
+        if vol.dim() != 5 or not vol.is_contiguous() or vol.numel() == 0 \
+                or vol.shape[:3] != pyramid[0].shape[:3] or vol.dtype != pyramid[0].dtype:
+            raise ValueError(
+                f"corr_lookup: volumes must be non-empty contiguous [B, h1, w1, h2, w2] of one "
+                f"dtype and query grid, got {vol.dtype} {tuple(vol.shape)}"
+            )
+        _build.dtype_code(vol)
+    if tuple(coords.shape) != (*pyramid[0].shape[:3], 2):
         raise ValueError(
-            f"corr_lookup: volume must be a non-empty contiguous [B, h1, w1, h2, w2], got "
-            f"{tuple(vol.shape)}"
-        )
-    _build.dtype_code(vol)
-    if tuple(coords.shape) != (*vol.shape[:3], 2):
-        raise ValueError(
-            f"corr_lookup: coords must be [{', '.join(map(str, vol.shape[:3]))}, 2], got "
+            f"corr_lookup: coords must be [{', '.join(map(str, pyramid[0].shape[:3]))}, 2], got "
             f"{tuple(coords.shape)}"
         )
     if radius < 0:
         raise ValueError(f"corr_lookup: radius must be >= 0, got {radius}")
+    if not window_fits(len(pyramid), radius):
+        raise ValueError(f"corr_lookup: radius {radius} at {len(pyramid)} levels needs more "
+                         f"shared memory than a block has")
 
 
-def _launch(vol, flat, level, radius, out, col):
-    """K11 on one level: flat coords [BQ, 2] fp32 at level 0, scaled by
-    2^-level in the kernel; fp32 output rows of ``out`` [BQ, n] from column col."""
+def _launch(pyramid, coords, radius):
+    """K11 on every level of the pyramid at coords [B, h1, w1, 2] (x, y) at
+    level 0 -> [B, h1, w1, L * (2r+1)^2] fp32."""
     global launches
-    bq, n = out.shape
-    with torch.cuda.device(vol.device):
-        rc = _build.lib().fst_corr_lookup_level(
-            vol.data_ptr(), vol.shape[3], vol.shape[4], flat.data_ptr(), level,
-            out[:, col:].data_ptr(), n, bq, radius, _build.dtype_code(vol),
-            _build.stream_of(vol),
+    b, h1, w1 = coords.shape[:3]
+    flat = coords.reshape(-1, 2).float().contiguous()
+    bq, nl = flat.shape[0], len(pyramid)
+    out = torch.empty((bq, nl * (2 * radius + 1) ** 2), dtype=torch.float32, device=flat.device)
+    with torch.cuda.device(flat.device):
+        rc = _build.lib().fst_corr_lookup(
+            *level_arrays(pyramid), nl, flat.data_ptr(), out.data_ptr(), bq, radius,
+            _build.dtype_code(pyramid[0]), _build.stream_of(flat),
         )
     _build.check(rc, "corr_lookup")
     launches += 1
+    return out.reshape(b, h1, w1, -1)
 
 
 def lookup_level_pallas(vol: torch.Tensor, coords: torch.Tensor, radius: int = 4) -> torch.Tensor:
     """K11 on one level: vol [B, h1, w1, h2, w2], coords [B, h1, w1, 2] (x, y)
     at the level's scale -> [B, h1, w1, (2r+1)^2] fp32."""
-    _check_args(vol, coords, radius)
+    _check_args([vol], coords, radius)
     if not _build.uses_kernel("corr_lookup", vol, coords):
         return lookup_level_plain(vol, coords, radius)
-    b, h1, w1 = vol.shape[:3]
-    k2 = (2 * radius + 1) ** 2
-    out = torch.empty((b * h1 * w1, k2), dtype=torch.float32, device=vol.device)
-    _launch(vol, coords.reshape(-1, 2).float().contiguous(), 0, radius, out, 0)
-    return out.reshape(b, h1, w1, k2)
+    return _launch([vol], coords, radius)
 
 
 def corr_pyramid_lookup_pallas(
     pyramid: list[torch.Tensor], coords: torch.Tensor, radius: int = 4
 ) -> torch.Tensor:
-    """K11 per level at coords / 2^level, levels concatenated:
-    [B, h1, w1, L * (2r+1)^2] fp32."""
-    for vol in pyramid:
-        _check_args(vol, coords, radius)
+    """K11 on all levels at coords / 2^level in one launch, levels
+    concatenated: [B, h1, w1, L * (2r+1)^2] fp32."""
+    _check_args(pyramid, coords, radius)
     if not _build.uses_kernel("corr_lookup", coords, *pyramid):
         return torch.cat([lookup_level_plain(vol, coords / (2.0 ** i), radius)
                           for i, vol in enumerate(pyramid)], dim=-1)
-    b, h1, w1 = coords.shape[:3]
-    k2 = (2 * radius + 1) ** 2
-    flat = coords.reshape(-1, 2).float().contiguous()
-    out = torch.empty((b * h1 * w1, len(pyramid) * k2), dtype=torch.float32, device=coords.device)
-    for lvl, vol in enumerate(pyramid):
-        _launch(vol, flat, lvl, radius, out, lvl * k2)
-    return out.reshape(b, h1, w1, -1)
+    return _launch(pyramid, coords, radius)

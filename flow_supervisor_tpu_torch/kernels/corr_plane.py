@@ -7,7 +7,8 @@ The pyramid is built once per forward as plain per-level planes
 row padding and index planes are not needed on the GPU). Each lookup samples,
 for every query and level, the (2r+1)^2 bilinear window at coords / 2^l with
 out-of-bounds taps reading 0, channels dx-major: [BQ, L * (2r+1)^2] in the
-requested dtype (csrc/corr_plane.cu, replaces ``_plane_kernel``).
+requested dtype (csrc/corr_plane.cu, replaces ``_plane_kernel``; the body
+is csrc/window.cuh's, shared with K10 and K11).
 
 The wrapper takes the plain PyTorch version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises. ``launches`` counts kernel launches.
@@ -27,7 +28,28 @@ from flow_supervisor_tpu_torch.ops.corr import (
 
 launches = 0
 
-MAX_LEVELS = 8  # csrc/corr_plane.cu kMaxLevels
+MAX_LEVELS = 8  # csrc/window.cuh kMaxLevels
+WARPS = 8  # csrc/window.cuh kWarps: queries per block
+# shared memory a block may opt in to on sm_90, the library's only target
+SMEM_OPTIN_BYTES = 227 * 1024
+
+
+def window_fits(levels: int, radius: int) -> bool:
+    """Whether a window-mode launch of csrc/window.cuh (K1, K10, K11) finds
+    room for its blocks' supports: 8 warps x levels x (2r+2) x (2r+3) fp32."""
+    s = 2 * radius + 2
+    return WARPS * levels * s * (s + 1) * 4 <= SMEM_OPTIN_BYTES
+
+
+def level_arrays(planes: list[torch.Tensor]):
+    """The per-level arguments of window.cuh's C entries: (plane pointers,
+    h2s, w2s) as ctypes arrays of [BQ, h2, w2] tensors (a volume [B, h1, w1,
+    h2, w2] is read as one)."""
+    nl = len(planes)
+    ptrs = (ctypes.c_void_p * nl)(*[p.data_ptr() for p in planes])
+    h2s = (ctypes.c_int * nl)(*[p.shape[-2] for p in planes])
+    w2s = (ctypes.c_int * nl)(*[p.shape[-1] for p in planes])
+    return tuple(ctypes.cast(a, ctypes.c_void_p) for a in (ptrs, h2s, w2s))
 
 
 def build_plane_pyramid(
@@ -86,13 +108,9 @@ def corr_lookup(
     bq, nl = coords.shape[0], len(planes)
     k2 = (2 * radius + 1) ** 2
     out = torch.empty((bq, nl * k2), dtype=out_dtype, device=coords.device)
-    ptrs = (ctypes.c_void_p * nl)(*[p.data_ptr() for p in planes])
-    h2s = (ctypes.c_int * nl)(*[p.shape[1] for p in planes])
-    w2s = (ctypes.c_int * nl)(*[p.shape[2] for p in planes])
     with torch.cuda.device(coords.device):
         rc = _build.lib().fst_corr_plane_lookup(
-            ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(h2s, ctypes.c_void_p),
-            ctypes.cast(w2s, ctypes.c_void_p), nl, coords.data_ptr(), out.data_ptr(),
+            *level_arrays(planes), nl, coords.data_ptr(), out.data_ptr(),
             bq, radius, _build.dtype_code(planes[0]), _build.dtype_code(out),
             _build.stream_of(coords),
         )

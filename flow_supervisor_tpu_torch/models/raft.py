@@ -14,8 +14,9 @@ package (channels dx-major in every backend):
 - ``"fused"``: volume-free, the pyramid is f1 and the pooled f2 in ``dtype``;
   K6 (all levels, B == 1) or K7 (per level, B > 1) compute each query's
   support correlations at every lookup (kernels/corr_fused.py);
-- ``"pallas"``: the same planes as ``"plane"``; K10 extracts each level's
-  support patches, combined in PyTorch (kernels/corr_lookup_v2.py).
+- ``"pallas"``: the same planes as ``"plane"``; K10 looks up every level's
+  window in one launch, fp32 out as in JAX, cast to ``dtype``
+  (kernels/corr_lookup_v2.py).
 
 Public layout follows the JAX package: images [B, H, W, 3], flows
 [B, H, W, 2], coords (x, y). Parameters are held in ``param_dtype``: by

@@ -23,17 +23,16 @@ from flow_supervisor_tpu_torch.ops.coords import coords_grid, downsample_shape
 
 # substrings of kernel names -> category (first match wins)
 CATEGORIES = (
-    ("K1 corr_plane", ("corr_plane_kernel",)),
+    # K1 (plane), K10 (pallas) and K11 run one body, csrc/window.cuh's
+    ("K1 / K10 / K11 window lookup", ("window_kernel",)),
     ("K6 corr_fused_all", ("corr_fused_all_kernel",)),
     ("K7 corr_fused_level", ("corr_fused_level_kernel",)),
-    ("K10 corr_window", ("corr_window_kernel",)),
     ("K8 bwd_df1", ("bwd_df1_kernel",)),
     ("K9 bwd_df2", ("bwd_df2_kernel",)),
     # both bodies of csrc/conv3x3.cu and K2's statistics finalize (in
     # csrc/norm.cu); before cuDNN's, whose keys match "conv"
     ("K2 conv3x3_stats / K5 conv3x3", ("conv3x3_kernel", "conv3x3_tc_kernel",
                                        "stats_finalize_kernel")),
-    ("K11 corr_lookup_level", ("corr_lookup_level_kernel",)),
     ("K3/K4 instance norm", ("norm_stats_kernel", "norm_apply_kernel")),
     ("cuDNN conv", ("fprop", "conv", "implicit", "winograd", "cudnn")),
     ("matmul", ("gemm", "cutlass")),

@@ -15,7 +15,9 @@ import torch
 from flow_supervisor_tpu_torch.kernels import (
     conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm,
 )
-from flow_supervisor_tpu_torch.ops.corr import build_corr_pyramid_from_fmaps, window_support
+from flow_supervisor_tpu_torch.ops.corr import (
+    build_corr_pyramid_from_fmaps, combine_support, window_support,
+)
 
 R = 4
 
@@ -478,20 +480,58 @@ def test_cuda_fused_lookup_backward_launches_k8_k9(cuda):
         f1.grad, corr_fused.bwd_df1_plain(pyr.f1, pyr.f2s, coords, g, R), atol=1e-5, rtol=1e-5)
 
 
+def _window_case(dev, dtype, b, h8, w8, seed):
+    """Planes of B samples at h8 x w8 (5x9: the last block of 8 queries
+    partly filled; 55x127: ragged pooled sizes), coords up to 15 px out of
+    bounds and four far out (+-1e9, +-3e38)."""
+    f1, f2, coords = _lookup_inputs(b=b, h8=h8, w8=w8, c=64, seed=seed)
+    far = [(1e9, -1e9), (-3e38, 3e38), (-1e9, 2.5), (3.5, 3e38)]
+    coords.reshape(-1, 2)[:4] = far
+    coords.reshape(-1, 2)[-1] = (-3e38, -1e9)
+    planes = corr_plane.build_plane_pyramid(
+        torch.from_numpy(f1).to(dev), torch.from_numpy(f2).to(dev), 4, dtype)
+    return planes, torch.from_numpy(coords).to(dev)
+
+
+# K10 and K11 run csrc/window.cuh's body, as K1 does: radius 4 the compiled
+# body, 3 the one that takes the radius as an argument
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_k10_matches_plain(cuda, dtype):
-    f1, f2, coords = _lookup_inputs(b=2, h8=5, w8=9, c=64, seed=14)
-    planes = corr_plane.build_plane_pyramid(
-        torch.from_numpy(f1).to(cuda), torch.from_numpy(f2).to(cuda), 4, dtype
-    )
-    c = torch.from_numpy(coords).reshape(-1, 2).to(cuda)
-    c[0] = torch.tensor([-3e38, 3e38])
+@pytest.mark.parametrize("radius", [3, 4])
+@pytest.mark.parametrize("hw", [(5, 9), (55, 127)])
+def test_cuda_k10_matches_plain(cuda, dtype, radius, hw):
+    """Support mode, one level a launch: a copy of plane values (bf16 -> fp32
+    is exact), so the plain version's bits."""
+    planes, c = _window_case(cuda, dtype, 2, *hw, seed=14)
+    c = c.reshape(-1, 2)
     for lvl, plane in enumerate(planes):
         cl = (c / 2.0 ** lvl).contiguous()
-        got = corr_lookup_v2.level_support(plane, cl, R)
-        # a copy of plane values (bf16 -> fp32 is exact): equal
-        torch.testing.assert_close(got, window_support(plane, cl, R), atol=0, rtol=0)
+        n = corr_lookup_v2.launches
+        got = corr_lookup_v2.level_support(plane, cl, radius)
+        assert corr_lookup_v2.launches == n + 1 and got.dtype == torch.float32
+        assert torch.equal(got, window_support(plane, cl, radius))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", [3, 4])
+@pytest.mark.parametrize("hw", [(5, 9), (55, 127)])
+def test_cuda_k10_window_mode_matches_plain_composition(cuda, dtype, radius, hw):
+    """Window mode, all levels in one launch, fp32 out: the plain support,
+    combine (the same order and rounding) and level concat; two launches
+    give the same bits."""
+    planes, c = _window_case(cuda, dtype, 2, *hw, seed=15)
+    flat = c.reshape(-1, 2)
+    n = corr_lookup_v2.launches
+    got = corr_lookup_v2.corr_pyramid_lookup_v2(planes, c, radius)
+    assert corr_lookup_v2.launches == n + 1
+    k2 = (2 * radius + 1) ** 2
+    assert got.shape == (2, *hw, 4 * k2) and got.dtype == torch.float32
+    want = torch.cat([combine_support(window_support(p, flat / 2.0 ** i, radius),
+                                      flat / 2.0 ** i, radius) for i, p in enumerate(planes)], 1)
+    torch.testing.assert_close(got.reshape(-1, 4 * k2), want, atol=1e-6, rtol=0)
+    assert torch.all(got.reshape(-1, 4 * k2)[:4] == 0) and torch.all(got[-1, -1, -1] == 0)
+    assert torch.equal(corr_lookup_v2.corr_pyramid_lookup_v2(planes, c, radius), got)
 
 
 # K5: a width that is not a multiple of the 128-pixel tile, Cout not a
@@ -604,21 +644,27 @@ def test_cuda_k5_backward_matches_the_cpu(cuda):
         torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
 
 
-# K11: a copy of the volume's values into the same bilinear formula, fp32
+# K11: a copy of the volume's values into the same bilinear formula, fp32;
+# all levels in one launch
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_k11_matches_plain(cuda, dtype):
-    f1, f2, coords = _lookup_inputs(b=2, h8=5, w8=9, c=64, seed=19)
+@pytest.mark.parametrize("radius", [3, 4])
+@pytest.mark.parametrize("hw", [(5, 9), (55, 127)])
+def test_cuda_k11_matches_plain(cuda, dtype, radius, hw):
+    f1, f2, coords = _lookup_inputs(b=2, h8=hw[0], w8=hw[1], c=64, seed=19)
     pyr = build_corr_pyramid_from_fmaps(
         torch.from_numpy(f1).to(cuda), torch.from_numpy(f2).to(cuda), 4, dtype)
     c = torch.from_numpy(coords).to(cuda)
-    c[0, 0, :3] = torch.tensor([[-3e38, 3e38], [1e9, 2.0], [3.5, -4e6]])
+    c[0, 0, :4] = torch.tensor([[-3e38, 3e38], [1e9, 2.0], [3.5, -4e6], [-1e9, 1e9]])
     n = corr_lookup.launches
-    got = corr_lookup.corr_pyramid_lookup_pallas(pyr, c, R)
-    assert corr_lookup.launches == n + 4 and got.dtype == torch.float32
-    want = torch.cat([corr_lookup.lookup_level_plain(v, c / 2.0 ** i, R)
+    got = corr_lookup.corr_pyramid_lookup_pallas(pyr, c, radius)
+    assert corr_lookup.launches == n + 1 and got.dtype == torch.float32
+    want = torch.cat([corr_lookup.lookup_level_plain(v, c / 2.0 ** i, radius)
                       for i, v in enumerate(pyr)], -1)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-    assert torch.all(got[0, 0, :3] == 0)
-    one = corr_lookup.lookup_level_pallas(pyr[1], (c / 2).contiguous(), R)
-    torch.testing.assert_close(one, got[..., 81:162], atol=0, rtol=0)
+    assert torch.all(got[0, 0, :4] == 0)
+    assert torch.equal(corr_lookup.corr_pyramid_lookup_pallas(pyr, c, radius), got)
+    k2 = (2 * radius + 1) ** 2
+    one = corr_lookup.lookup_level_pallas(pyr[1], (c / 2).contiguous(), radius)
+    assert corr_lookup.launches == n + 3
+    torch.testing.assert_close(one, got[..., k2:2 * k2], atol=0, rtol=0)
