@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's RAFT inference path, its three train steps
-(Baseline, Unsup, flow-supervisor semi with and without the teacher SMURF
-loss) and the two kernels that no model path reaches (K5, K11) on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's RAFT inference path, its evaluation path,
+its three train steps (Baseline, Unsup, flow-supervisor semi with and
+without the teacher SMURF loss) and the two kernels that no model path
+reaches (K5, K11) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -32,10 +32,12 @@ each printing one JSON line per check or configuration:
    scalar body), B = 20 and M = 1, each on the body its rule picks;
 2. parity: a 216x512, 12-iteration fp32 forward on the card (kernels) against
    the same model and weights on the CPU (plain versions), for each lookup
-   backend (plane, fused, pallas);
+   backend (plane, fused, pallas, einsum, the zero ablation, and auto:
+   fused on the card, einsum on the CPU);
 3. main_path: for each configuration (lookup backend, batch) one 448x1024,
    12-iteration bf16 forward with the launch counters reset, which must
-   launch each kernel the expected number of times, run every K2 launch
+   launch each kernel the expected number of times (einsum B=1: the
+   encoders' only, its lookup is plain PyTorch), run every K2 launch
    on the conv's tensor-core body and every K3 / K4 launch on the norm's
    vector body; then pairs/s over 20 back-to-back
    forwards, peak device memory, device time and idle share of one forward
@@ -57,6 +59,20 @@ each printing one JSON line per check or configuration:
    plain version and a library call;
 4. requests: ``run_pair`` on three Sintel-size pairs, writing and reading
    back ``.flo`` files;
+   evaluate: the ``Evaluator`` over a Sintel tree (one scene, 4 frames at
+   436x1024, clean and final, ``.flo`` labels) and a KITTI tree (2 pairs at
+   375x1242, 16-bit flow PNGs, about 30 % valid) written by the port's own
+   writers (each PNG read back and compared), on a full-width
+   flow-supervisor RAFT with its teacher head (fp32, the auto lookup):
+   Sintel at 32 iterations with warm start, then 12 teacher iterations;
+   KITTI at 24 + 12 with pad_bucket 8 and 64. Each run must launch K6
+   (iters + teacher iters) times a pair and K2 / K3 / K4 their encoder
+   counts, and give every metric finite and in range; it prints pairs/s,
+   host ms per pair (decode, warm start, forward), device ms and idle share
+   of one pair (torch.profiler), peak memory and decode ms per frame. Then
+   the same Evaluator on the card against the CPU at 216x512, 4 iterations,
+   dense with warm start and sparse: |d EPE| < 1e-3 px, each n-px accuracy
+   and Fl-all within 1e-2;
 5. train_parity: one train step at fp32 on the card against the same step
    on the CPU (3 iterations, 64x96 crops of 96x128 frames), for each step
    kind: semi (Sintel recipe), Unsup (default loss, wang), semi with the
@@ -85,6 +101,7 @@ and the least time the card could take for the same work) and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
 non-zero; so does a machine without a CUDA device. It imports nothing of JAX.
 """
+import contextlib
 import json
 import math
 import os
@@ -222,13 +239,31 @@ PARITY_STATS_UPDATE_REL = 2e-4
 # downsamples: K3 + K4); then 12 lookups, each one launch of K1 or K6, or one
 # per level (4) of K7
 ENCODER_LAUNCHES = {"conv3x3_stats": 10, "norm_stats": 5, "norm_apply": 15}
+# (the einsum lookup is plain PyTorch: one-hot matrix products, no hand kernel)
 LOOKUP_KERNEL = {("plane", 1): "corr_plane", ("fused", 1): "corr_fused_all",
                  ("fused", 8): "corr_fused_level", ("pallas", 1): "corr_window",
-                 ("plane", 8): "corr_plane"}
+                 ("plane", 8): "corr_plane", ("einsum", 1): None}
 LOOKUP_LAUNCHES = {"corr_plane": ITERS, "corr_fused_all": ITERS,
                    "corr_fused_level": ITERS * LEVELS, "corr_window": ITERS}
-# (backend, batch) in the order they run; plane at B=8 is there for comparison
-CONFIGS = [("plane", 1), ("fused", 1), ("fused", 8), ("pallas", 1), ("plane", 8)]
+# (backend, batch) in the order they run; plane at B=8 is there for comparison,
+# einsum at B=1 for the record (the auto rule never takes it on the card)
+CONFIGS = [("plane", 1), ("fused", 1), ("fused", 8), ("pallas", 1), ("plane", 8), ("einsum", 1)]
+# the evaluate phase (evaluate.py's defaults: fp32; 32 iterations for
+# Sintel, 24 for KITTI; the recipes' 12 teacher iterations): the full frame
+# sizes, the pairs, and the card-vs-CPU check's size, iterations and limits
+EVAL_SINTEL_HW = (436, 1024)
+EVAL_KITTI_HW = (375, 1242)
+EVAL_SINTEL_FRAMES = 4
+EVAL_KITTI_PAIRS = 2
+EVAL_SINTEL_ITERS = 32
+EVAL_KITTI_ITERS = 24
+EVAL_TEACHER_ITERS = 12
+EVAL_PARITY_HW = (216, 512)
+EVAL_PARITY_ITERS = 4
+EVAL_PARITY_EPE = 1e-3  # px, |card - CPU| of each mean EPE
+EVAL_PARITY_SHARE = 1e-2  # of each n-px accuracy and Fl-all
+# phase 2's backends; auto is fused on the card and einsum on the CPU
+PARITY_BACKENDS = ("plane", "fused", "pallas", "einsum", "zero", "auto")
 # the configuration whose main-path run gives each kernel's launches
 HOME_CONFIG = {"corr_plane": ("plane", 1), "conv3x3_stats": ("plane", 1),
                "norm_stats": ("plane", 1), "norm_apply": ("plane", 1),
@@ -849,17 +884,22 @@ def phase_parity(dev):
 
     from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
 
+    from flow_supervisor_tpu_torch.models.raft import resolve_lookup_backend
+
     gen = torch.Generator().manual_seed(2)
     base = RAFT(RAFTConfig(iters=ITERS), generator=gen)
     img1, img2 = synthetic_pair(1, 216, 512, gen)
-    for backend in ("plane", "fused", "pallas"):
+    for backend in PARITY_BACKENDS:
         model = RAFT(RAFTConfig(iters=ITERS, lookup_backend=backend))
         model.load_state_dict(base.state_dict())
         cpu = model(img1, img2, final_flow_only=True)["flow_up"][-1]
         model.to(dev)
         gpu = model(img1.to(dev), img2.to(dev), final_flow_only=True)["flow_up"][-1].cpu()
         d = (gpu - cpu).abs()
-        res = {"phase": "parity", "lookup_backend": backend, "hw": [216, 512], "iters": ITERS,
+        res = {"phase": "parity", "lookup_backend": backend,
+               "ran": {"gpu": resolve_lookup_backend(backend, dev),
+                       "cpu": resolve_lookup_backend(backend, "cpu")},
+               "hw": [216, 512], "iters": ITERS,
                "dtype": "float32", "mean_abs_diff_px": float(d.mean()),
                "max_abs_diff_px": float(d.max()), "max_abs_flow_px": float(cpu.abs().max())}
         res["ok"] = bool(torch.isfinite(gpu).all() and res["mean_abs_diff_px"] < 1e-3
@@ -1076,7 +1116,8 @@ def phase_main_path(dev):
         want = {k: 0 for k in SOURCES}
         want.update(ENCODER_LAUNCHES)
         lookup = LOOKUP_KERNEL[(backend, batch)]
-        want[lookup] = LOOKUP_LAUNCHES[lookup]
+        if lookup is not None:
+            want[lookup] = LOOKUP_LAUNCHES[lookup]
         flow = out["flow_up"]
         if tuple(flow.shape) != (1, batch, *MAIN_HW, 2) or not torch.isfinite(flow).all():
             raise AssertionError(f"{backend} B={batch}: main path output bad, shape {tuple(flow.shape)}")
@@ -1097,18 +1138,21 @@ def phase_main_path(dev):
         peak = torch.cuda.max_memory_allocated()
         # device time, idle share and launches of one forward (torch.profiler)
         prof = profile(forward, n=1)
-        with torch.no_grad():
-            pyramid = model.build_corr(*model.features(img1, img2))
-        name, t = lookup_timing(backend, batch, pyramid, coords, dev)
-        t["launches"] = got[name]
-        times[(backend, batch)] = {name: t}
-        del pyramid, model, img1, img2
+        lookup_kernel = None
+        if lookup is not None:
+            with torch.no_grad():
+                pyramid = model.build_corr(*model.features(img1, img2))
+            name, t = lookup_timing(backend, batch, pyramid, coords, dev)
+            t["launches"] = got[name]
+            times[(backend, batch)] = lookup_kernel = {name: t}
+            del pyramid
+        del model, img1, img2
         torch.cuda.empty_cache()
         res = {"phase": "main_path", "ok": True, "lookup_backend": backend, "batch": batch,
                "hw": list(MAIN_HW), "iters": ITERS, "dtype": "bfloat16", "launches": got,
                "conv_tensor_core_launches": tc,
                "fwd_ms": fwd_ms, "pairs_per_s": 1000.0 * batch / fwd_ms,
-               "peak_mem_bytes": peak, "lookup_kernel": {name: t},
+               "peak_mem_bytes": peak, "lookup_kernel": lookup_kernel,
                "device_ms_per_forward": prof.get("device_ms_per_forward"),
                "device_idle_share": prof.get("device_idle_share"),
                "launches_per_forward_all": prof.get("launches_per_forward"),
@@ -1271,6 +1315,236 @@ def phase_requests(dev):
                          "seconds": secs, "mean_flow_px": float(np.abs(back).mean())})
     emit({"phase": "requests", "ok": True, "mode": "sintel", "padded_hw": [440, 1024],
           "dtype": "float32", "pairs": done})
+
+
+def eval_frames(n, h, w, gen, step=(2, 3)):
+    """n smooth random frames [H, W, 3] uint8, each shifted by step (dy, dx)
+    pixels from the one before: the flow from each to the next is
+    (-dx, -dy) everywhere."""
+    import torch
+    import torch.nn.functional as F
+
+    dy, dx = step
+    big_h, big_w = h + dy * n, w + dx * n
+    low = torch.rand(1, 3, big_h // 16 + 2, big_w // 16 + 2, generator=gen)
+    big = F.interpolate(low, size=(big_h, big_w), mode="bilinear", align_corners=False)[0]
+    big = (big.permute(1, 2, 0) * 255.0).round().clamp(0, 255).to(torch.uint8).numpy()
+    return [big[i * dy : i * dy + h, i * dx : i * dx + w] for i in range(n)]
+
+
+def write_checked_png(path, arr):
+    """write_png, then read the file back: the samples must be what was written."""
+    import numpy as np
+
+    from flow_supervisor_tpu_torch.data.io import read_png, write_png
+
+    write_png(path, arr)
+    back = read_png(path)
+    if back.dtype != arr.dtype or not np.array_equal(back.reshape(arr.shape), arr):
+        raise AssertionError(f"{path}: the PNG read back differs from what was written")
+
+
+def write_eval_tree(root, gen, sintel_hw, kitti_hw, sintel_frames=EVAL_SINTEL_FRAMES):
+    """A Sintel training tree (one scene of `sintel_frames` frames, clean and
+    final, .flo labels) and a KITTI training tree (EVAL_KITTI_PAIRS pairs,
+    16-bit flow PNGs with about 30 % of the pixels valid) under root, with
+    the port's own writers; each PNG is read back and checked. The final
+    pass is the clean one with noise."""
+    import numpy as np
+
+    from flow_supervisor_tpu_torch.data.io import write_flo
+
+    rng = np.random.default_rng(11)
+    step = (2, 3)
+    flow = np.broadcast_to(np.float32([-step[1], -step[0]]), (*sintel_hw, 2)).copy()
+    frames = eval_frames(sintel_frames, *sintel_hw, gen, step)
+    for dstype in ("clean", "final"):
+        d = os.path.join(root, "Sintel/training", dstype, "alley_1")
+        os.makedirs(d)
+        for i, img in enumerate(frames):
+            if dstype == "final":
+                img = np.clip(img + rng.normal(0, 4, img.shape), 0, 255).astype(np.uint8)
+            write_checked_png(os.path.join(d, f"frame_{i:04d}.png"), img)
+    fd = os.path.join(root, "Sintel/training/flow/alley_1")
+    os.makedirs(fd)
+    for i in range(sintel_frames - 1):
+        write_flo(os.path.join(fd, f"frame_{i:04d}.flo"), flow)
+    k = os.path.join(root, "KITTI/data_scene_flow/training")
+    os.makedirs(os.path.join(k, "image_2"))
+    os.makedirs(os.path.join(k, "flow_occ"))
+    for i in range(EVAL_KITTI_PAIRS):
+        a, b = eval_frames(2, *kitti_hw, gen, step)
+        write_checked_png(os.path.join(k, "image_2", f"{i:06d}_10.png"), a)
+        write_checked_png(os.path.join(k, "image_2", f"{i:06d}_11.png"), b)
+        raw = np.zeros((*kitti_hw, 3), np.uint16)
+        raw[..., 0] = 2 ** 15 - 64 * step[1]
+        raw[..., 1] = 2 ** 15 - 64 * step[0]
+        raw[..., 2] = rng.random(kitti_hw) < 0.3
+        write_checked_png(os.path.join(k, "flow_occ", f"{i:06d}_10.png"), raw)
+
+
+def check_eval_result(where, res, sparse, teacher=True):
+    """Raises unless every metric is finite and in its range."""
+    names = ["student"] + (["teacher"] if teacher else [])
+    keys = ["epe", "epe_1px", "epe_3px", "epe_5px"] + (["fl"] if sparse else [])
+    for n in names:
+        for k in keys:
+            v = res.get(f"{n}_{k}")
+            ok = v is not None and math.isfinite(v) and v >= 0.0 and (k == "epe" or v <= 1.0)
+            if not ok:
+                raise AssertionError(f"{where}: {n}_{k} = {v} out of range: {res}")
+    if not res["pairs_per_sec"] > 0.0:
+        raise AssertionError(f"{where}: pairs_per_sec {res['pairs_per_sec']}")
+
+
+def eval_launch_check(where, got, pairs, iters, teacher_iters):
+    """Raises unless a run of `pairs` pairs launched K6 (iters + teacher_iters)
+    times a pair, K2 / K3 / K4 their encoder counts a pair and nothing else."""
+    want = {k: 0 for k in SOURCES}
+    want.update({k: pairs * v for k, v in ENCODER_LAUNCHES.items()})
+    want["corr_fused_all"] = pairs * (iters + teacher_iters)
+    if got != want:
+        raise AssertionError(f"{where}: launch counts {got} != expected {want}")
+    return {k: v / pairs for k, v in got.items() if v}
+
+
+@contextlib.contextmanager
+def data_root(root: str):
+    """The port's dataset catalog reads ``root`` (FST_DATA_ROOT, with
+    ``data.paths`` reloaded) inside the block, and what it read before after."""
+    import importlib
+
+    from flow_supervisor_tpu_torch.data import paths
+
+    old_root = os.environ.get("FST_DATA_ROOT")
+    os.environ["FST_DATA_ROOT"] = root
+    importlib.reload(paths)
+    try:
+        yield
+    finally:
+        if old_root is None:
+            os.environ.pop("FST_DATA_ROOT", None)
+        else:
+            os.environ["FST_DATA_ROOT"] = old_root
+        importlib.reload(paths)
+
+
+def phase_evaluate(dev):
+    """The Evaluator over Sintel and KITTI trees written by the port's own
+    writers (``write_eval_tree``), on a full-width flow-supervisor RAFT with
+    its teacher head (random weights, fp32, the auto lookup: fused on the
+    card): Sintel at 436x1024, 32 student + 12 teacher iterations, warm
+    start within the scene, both passes; KITTI at 375x1242, 24 + 12, sparse,
+    pad_bucket 8 and 64. Launch counts per pair, metrics in range, pairs/s,
+    host ms per pair (decode, warm start, forward), device ms and idle share
+    of one pair (profiler), peak memory, and decode ms per frame. Then the
+    same Evaluator on the card against the CPU at 216x512, 4 iterations,
+    dense with warm start and sparse."""
+    import numpy as np
+    import torch
+
+    from flow_supervisor_tpu_torch.data import datasets as D
+    from flow_supervisor_tpu_torch.data.io import read_flow_kitti, read_image
+    from flow_supervisor_tpu_torch.data.pipeline import load_record
+    from flow_supervisor_tpu_torch.evaluation import Evaluator
+    from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
+    from flow_supervisor_tpu_torch.profile_forward import profile
+    from flow_supervisor_tpu_torch.utils.warm_start import forward_interpolate
+
+    gen = torch.Generator().manual_seed(12)
+    model = RAFT(RAFTConfig(teacher=True, teacher_iters=EVAL_TEACHER_ITERS, lookup_backend="auto"),
+                 generator=gen)
+    cpu_model = RAFT(RAFTConfig(teacher=True, teacher_iters=EVAL_TEACHER_ITERS,
+                                lookup_backend="auto"))
+    cpu_model.load_state_dict(model.state_dict())
+    model.to(dev)
+    results = []
+    with tempfile.TemporaryDirectory() as tmp, data_root(tmp):
+        t0 = time.perf_counter()
+        write_eval_tree(tmp, gen, EVAL_SINTEL_HW, EVAL_KITTI_HW)
+        write_s = time.perf_counter() - t0
+        sintel = {p: D.sintel(True, p) for p in ("clean", "final")}
+        kitti = D.kitti(True)
+        frame = sintel["clean"][0].images[0]
+        decode_ms = {"sintel_frame_png": 1e3 * min(
+                         timed(lambda: read_image(frame)) for _ in range(3)),
+                     "kitti_flow_png": 1e3 * min(
+                         timed(lambda: read_flow_kitti(kitti[0].flow)) for _ in range(3))}
+        # warm-up: cuDNN's algorithm choice at both shapes, the allocator
+        Evaluator(model, iters=2).evaluate(sintel["clean"][:1])
+        Evaluator(model, iters=2, pad_bucket=64).evaluate(kitti[:1], sparse=True)
+        runs = [("sintel", p, EVAL_SINTEL_ITERS, 8, False, True, sintel[p])
+                for p in ("clean", "final")]
+        runs += [("kitti", "training", EVAL_KITTI_ITERS, bucket, True, False, kitti)
+                 for bucket in (8, 64)]
+        for name, split, iters, bucket, sparse, warm, recs in runs:
+            ev = Evaluator(model, iters=iters, pad_bucket=bucket)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            res = ev.evaluate(recs, sparse=sparse, warm_start=warm)
+            torch.cuda.synchronize()
+            where = f"evaluate {name} {split} pad_bucket {bucket}"
+            per_pair = eval_launch_check(where, launch_counts(), len(recs), iters,
+                                         EVAL_TEACHER_ITERS)
+            check_eval_result(where, res, sparse)
+            peak = torch.cuda.max_memory_allocated()
+            # device time and idle share of one pair as the Evaluator runs it
+            img1, img2, _, _ = load_record(recs[-1])
+            init = None
+            if warm:
+                _, low = ev.predict(*load_record(recs[-2])[:2], "sintel")
+                init = forward_interpolate(low)
+            prof = profile(lambda: ev.predict(img1, img2, "kitti" if sparse else "sintel",
+                                              init), n=1)
+            row = {"phase": "evaluate", "ok": True, "dataset": name, "split": split,
+                   "hw": list(img1.shape[:2]), "pad_bucket": bucket, "pairs": len(recs),
+                   "iters": iters, "teacher_iters": EVAL_TEACHER_ITERS, "warm_start": warm,
+                   "dtype": "float32", "lookup_backend": "auto (fused)",
+                   "launches_per_pair": per_pair, "metrics": res,
+                   "pairs_per_s": res["pairs_per_sec"],
+                   "host_ms_per_pair": {k: res[f"{k}_ms_per_pair"]
+                                        for k in ("decode", "warm_start", "forward")},
+                   "device_ms_per_pair": prof.get("device_ms_per_forward"),
+                   "device_idle_share": prof.get("device_idle_share"),
+                   "launches_per_pair_all": prof.get("launches_per_forward"),
+                   "by_category_ms_per_pair": prof.get("by_category_ms_per_forward"),
+                   "peak_mem_bytes": peak}
+            emit(row)
+            results.append(row)
+        emit({"phase": "evaluate", "ok": True, "decode_ms": decode_ms,
+              "tree_write_s": write_s})
+    # the same Evaluator on the card against the CPU (plain versions; auto
+    # is einsum there) at 216x512
+    with tempfile.TemporaryDirectory() as tmp, data_root(tmp):
+        write_eval_tree(tmp, gen, EVAL_PARITY_HW, EVAL_PARITY_HW, sintel_frames=3)
+        for name, recs, sparse in (("sintel", D.sintel(True, "clean"), False),
+                                   ("kitti", D.kitti(True), True)):
+            got = Evaluator(model, iters=EVAL_PARITY_ITERS).evaluate(
+                recs, sparse=sparse, warm_start=not sparse)
+            ref = Evaluator(cpu_model, iters=EVAL_PARITY_ITERS).evaluate(
+                recs, sparse=sparse, warm_start=not sparse)
+            diffs = {k: abs(got[k] - ref[k]) for k in ref
+                     if k.startswith(("student_", "teacher_"))}
+            ok = bool(diffs) and all(
+                d < (EVAL_PARITY_EPE if k.endswith("_epe") else EVAL_PARITY_SHARE)
+                for k, d in diffs.items())
+            row = {"phase": "evaluate", "check": "card_vs_cpu", "dataset": name,
+                   "hw": list(EVAL_PARITY_HW), "pairs": len(recs), "iters": EVAL_PARITY_ITERS,
+                   "teacher_iters": EVAL_TEACHER_ITERS, "warm_start": not sparse,
+                   "dtype": "float32", "ran": {"gpu": "fused", "cpu": "einsum"},
+                   "max_abs_diff": diffs, "gpu": got, "cpu": ref, "ok": ok}
+            emit(row)
+            if not ok:
+                raise AssertionError(f"evaluate card-vs-CPU parity failed: {row}")
+    return results
+
+
+def timed(fn) -> float:
+    """Seconds of one call of fn, by the host clock."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
 
 
 def noise_bias(name: str, bn_train: bool = False) -> bool:
@@ -1537,7 +1811,9 @@ def train_main(dev, kind: str, batches, **shapes):
     from flow_supervisor_tpu_torch.training.loop import make_step, train
 
     model_kw, train_kw = STEP_RECIPES[kind]
-    with tempfile.TemporaryDirectory() as tmp:
+    # an empty dataset root: no standing validation set, so ``train`` runs
+    # the steps alone whatever the working directory holds
+    with tempfile.TemporaryDirectory() as tmp, data_root(os.path.join(tmp, "no_datasets")):
         cfg = ExperimentConfig(ModelCfg(**model_kw, compute_dtype="bfloat16"),
                                TrainCfg(**train_kw, seed=7), ckpt_dir=tmp)
         torch.cuda.synchronize()
@@ -1665,6 +1941,7 @@ def main() -> int:
     launches, times = phase_main_path(dev)
     launches[("own", 1)], times[("own", 1)] = phase_own_paths(dev)
     phase_requests(dev)
+    phase_evaluate(dev)
     phase_train_parity(dev)
     launches[("train", 1)], times[("train", 1)] = phase_train_main(dev)
 

@@ -1,9 +1,9 @@
 """Experiment configuration: the fields of the JAX package's ``ModelCfg`` and
-``TrainCfg`` (flow_supervisor_tpu/config.py) that the port's training path
-reads, with the same names and defaults, as plain dataclasses. YAML
-persistence, the argument parser and the fields of unported paths (the data
-pipeline and its image sizes, validation, parallelism, tracing) are not
-carried over."""
+``TrainCfg`` (flow_supervisor_tpu/config.py) that the port's training and
+standing-validation paths read, with the same names and defaults, as plain
+dataclasses. YAML persistence, the argument parser and the fields of
+unported paths (the data pipeline and its image sizes, parallelism,
+tracing) are not carried over."""
 from __future__ import annotations
 
 import dataclasses
@@ -42,7 +42,7 @@ class ModelCfg:
     # precision
     compute_dtype: str = "bfloat16"  # bfloat16 | float32
     corr_dtype: str = "float32"
-    lookup_backend: str = "auto"  # the port's RAFT takes plane | fused | pallas
+    lookup_backend: str = "auto"  # models/raft.py LOOKUP_BACKENDS; auto: fused on the card
 
 
 @dataclasses.dataclass
@@ -55,6 +55,14 @@ class TrainCfg:
     weight_decay: float = 1e-4
     clip_norm: float = 1.0
     num_steps: int = 100000
+    val_step: int = 5000
+    val_max_records: int = 0  # cap records per standing-validation set (0 = all)
+    # standing validation's iterations: 0 = the eval policy (32 sintel / 24
+    # otherwise, evaluation.eval_iters_policy), > 0 = that many
+    val_iters: int = 0
+    val_warm_start: bool = False  # warm-start within scenes during validation
+    val_pad_bucket: int = 64  # pad multiple of the sparse (KITTI) validation sets
+    skip_validation_at_start: bool = False
     freeze_bn: bool = False
     loss_type: str = "robust"
     loss_decay_rate: float = 0.8

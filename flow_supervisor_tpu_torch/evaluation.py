@@ -1,14 +1,53 @@
-"""Single-pair inference as the evaluator runs it (counterpart of
-flow_supervisor_tpu/evaluation.py ``Evaluator._run_pair``): replicate-edge pad
-to a multiple of 8, forward with ``final_flow_only``, unpad."""
+"""Evaluation (counterpart of flow_supervisor_tpu/evaluation.py): dense
+(Sintel, chairs) and sparse (KITTI) scoring of a model over records, with
+optional warm start, and the standing validation of training.
+
+- ``run_pair``: one pair through the ``Evaluator``'s student, padded to a
+  multiple of 8.
+- ``Evaluator``: pads each pair by ``pad_spec_for(..., multiple=pad_bucket)``
+  ('sintel' mode, centred, for dense sets; 'kitti' mode, at the bottom, for
+  sparse ones), runs the model at ``iters`` and scores the final prediction,
+  unpadded: per-image EPE and 1 / 3 / 5-px accuracies, and over the valid
+  pixels with Fl-all for sparse sets. A model with a teacher head scores
+  both: the student runs ``iters``, then the teacher continues from the
+  student's final hidden state and flow for ``teacher_iters``
+  (``student_*`` and ``teacher_*``). Warm start: within a scene
+  (``rec.extra[0]``), the previous pair's final low-resolution flow, at the
+  padded 1/8 size, is splatted forward on the host and starts the next
+  pair. It also reports ``pairs_per_sec`` and the host time per pair spent
+  decoding, warm-starting and in the forward (which waits for the device).
+- ``eval_iters_policy``, ``standing_validation_sets``,
+  ``make_train_validator``: the training loop's standing validation.
+
+The Evaluator runs on the model's device, in the model's eval mode (it puts
+back the mode it found), and sets no global flag.
+"""
 from __future__ import annotations
 
-from typing import Optional
+import time
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
+from flow_supervisor_tpu_torch.data.datasets import FlowRecord
+from flow_supervisor_tpu_torch.data.pipeline import load_record
+from flow_supervisor_tpu_torch.metrics import dense_metrics, sparse_metrics
+from flow_supervisor_tpu_torch.ops.coords import coords_grid, downsample_shape
 from flow_supervisor_tpu_torch.ops.pad import pad_spec_for
+from flow_supervisor_tpu_torch.utils.warm_start import forward_interpolate
+
+
+def _padded(img: np.ndarray, spec, device) -> torch.Tensor:
+    """[H, W, 3] -> [1, H', W', 3] float32 on device, replicate-edge padded by spec."""
+    (t, b), (l, r) = spec
+    x = np.pad(np.asarray(img, np.float32), ((t, b), (l, r), (0, 0)), mode="edge")
+    return torch.from_numpy(x[None]).to(device)
+
+
+def _unpad(x: np.ndarray, spec) -> np.ndarray:
+    (t, b), (l, r) = spec
+    return x[:, t : x.shape[1] - b, l : x.shape[2] - r]
 
 
 def run_pair(
@@ -20,19 +59,186 @@ def run_pair(
     iters: int = 12,
 ) -> tuple[np.ndarray, np.ndarray]:
     """img1/img2: [H, W, 3] in [0, 1]; flow_init: [h8, w8, 2] at the padded
-    1/8 resolution. Returns (flow [H, W, 2], flow_low [h8, w8, 2]) as float32."""
-    device = next(model.parameters()).device
-    spec = pad_spec_for(img1.shape[0], img1.shape[1], mode=mode)
-    (t, b), (l, r) = spec
+    1/8 resolution. Returns (flow [H, W, 2], flow_low [h8, w8, 2]) as float32:
+    the student's ``Evaluator.predict`` at ``pad_bucket`` 8."""
+    results, low = Evaluator(model, iters=iters, use_teacher=False).predict(
+        img1, img2, mode, flow_init)
+    return results["student"][0], low
 
-    def prep(img):
-        x = np.pad(np.asarray(img, np.float32), ((t, b), (l, r), (0, 0)), mode="edge")
-        return torch.from_numpy(x[None]).to(device)
 
-    init = None
-    if flow_init is not None:
-        init = torch.from_numpy(np.asarray(flow_init, np.float32)[None]).to(device)
-    out = model(prep(img1), prep(img2), flow_init=init, iters=iters, final_flow_only=True)
-    flow = out["flow_up"][-1, 0].float().cpu().numpy()
-    flow = flow[t : flow.shape[0] - b, l : flow.shape[1] - r]
-    return flow, out["flow_low"][-1, 0].float().cpu().numpy()
+class Evaluator:
+    """Scores a model over record lists (module docstring). ``use_teacher``
+    (default: whether the model has a teacher head) picks the teacher split;
+    ``space_parallel`` > 1 (JAX's space-sharded evaluation) is not ported."""
+
+    def __init__(
+        self,
+        model,
+        iters: int = 24,
+        use_teacher: Optional[bool] = None,
+        pad_bucket: int = 8,
+        space_parallel: int = 1,
+    ):
+        if space_parallel > 1:
+            raise NotImplementedError(
+                "space_parallel > 1: space-parallel evaluation is not ported yet "
+                "(ROADMAP Queue 1, item 9)"
+            )
+        self.model = model
+        self.iters = iters
+        self.use_teacher = bool(model.cfg.teacher) if use_teacher is None else use_teacher
+        self.pad_bucket = pad_bucket
+
+    def _teacher_forward(self, x1, x2, flow_init):
+        """The student for ``iters`` (final flow only), then the teacher head
+        from the student's final hidden state at coords0 + its final low
+        flow for ``teacher_iters`` -> (student up, teacher up, student low)."""
+        m = self.model
+        b, h, w, _ = x1.shape
+        pyramid = m.build_corr(*m.features(x1, x2))
+        net, inp = m.context(x1)
+        coords0 = coords_grid(b, downsample_shape(h), downsample_shape(w), device=x1.device)
+        coords1 = coords0 if flow_init is None else coords0 + flow_init
+        net, _, stu_up, stu_low = m.iterate(
+            net, inp, pyramid, coords0, coords1, (h, w), self.iters, final_flow_only=True)
+        _, _, tea_up, _ = m.teacher_iterate(
+            net, inp, pyramid, coords0, coords0 + stu_low[-1], (h, w), m.cfg.teacher_iters,
+            final_flow_only=True)
+        return stu_up[-1], tea_up[-1], stu_low[-1]
+
+    @torch.no_grad()
+    def predict(self, img1: np.ndarray, img2: np.ndarray, mode: str,
+                flow_init: Optional[np.ndarray] = None):
+        """One pair: ({"student": flow [1, H, W, 2], and "teacher" with the
+        teacher split}, the student's final low flow [h8, w8, 2] at the padded
+        1/8 size), numpy float32. flow_init: [h8, w8, 2] at that size."""
+        device = next(self.model.parameters()).device
+        spec = pad_spec_for(img1.shape[0], img1.shape[1], mode=mode, multiple=self.pad_bucket)
+        x1, x2 = _padded(img1, spec, device), _padded(img2, spec, device)
+        init = None
+        if flow_init is not None:
+            init = torch.from_numpy(np.asarray(flow_init, np.float32)[None]).to(device)
+        results = {}
+        if self.use_teacher:
+            stu, tea, low = self._teacher_forward(x1, x2, init)
+            results["teacher"] = _unpad(tea.float().cpu().numpy(), spec)
+        else:
+            out = self.model(x1, x2, flow_init=init, iters=self.iters, final_flow_only=True)
+            stu, low = out["flow_up"][-1], out["flow_low"][-1]
+        results["student"] = _unpad(stu.float().cpu().numpy(), spec)
+        return results, low[0].float().cpu().numpy()
+
+    def evaluate(
+        self, records: Iterable[FlowRecord], sparse: bool = False, warm_start: bool = False
+    ) -> dict[str, float]:
+        """Mean of each per-pair metric (``student_*``, ``teacher_*``),
+        ``pairs_per_sec``, and host ms per pair: ``decode_ms_per_pair``,
+        ``warm_start_ms_per_pair``, ``forward_ms_per_pair``."""
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            return self._evaluate(records, sparse, warm_start)
+        finally:
+            self.model.train(was_training)
+
+    def _evaluate(self, records, sparse, warm_start):
+        lists: dict[str, list[float]] = {}
+        host = {"decode": 0.0, "warm_start": 0.0, "forward": 0.0}
+        prev_scene, prev_low = None, None
+        n_pairs = 0
+        mode = "kitti" if sparse else "sintel"
+        t0 = time.perf_counter()
+        for rec in records:
+            t = time.perf_counter()
+            img1, img2, flow_gt, valid = load_record(rec)
+            host["decode"] += time.perf_counter() - t
+            scene = rec.extra[0] if rec.extra else None
+            flow_init = None
+            t = time.perf_counter()
+            if warm_start and prev_low is not None and scene == prev_scene:
+                flow_init = forward_interpolate(prev_low)
+            host["warm_start"] += time.perf_counter() - t
+            prev_scene = scene
+            t = time.perf_counter()
+            results, prev_low = self.predict(img1, img2, mode, flow_init)
+            host["forward"] += time.perf_counter() - t
+            n_pairs += 1
+            gt = torch.from_numpy(flow_gt[None])
+            for name, pred in results.items():
+                pred = torch.from_numpy(np.ascontiguousarray(pred))
+                if sparse:
+                    m = sparse_metrics(pred, gt, torch.from_numpy(valid[None]))
+                else:
+                    m = dense_metrics(pred, gt)
+                for k, v in m.items():
+                    lists.setdefault(f"{name}_{k}", []).append(float(v[0]))
+        out = {k: float(np.mean(v)) for k, v in lists.items()}
+        if n_pairs:
+            out["pairs_per_sec"] = n_pairs / max(time.perf_counter() - t0, 1e-9)
+            out.update({f"{k}_ms_per_pair": 1e3 * v / n_pairs for k, v in host.items()})
+        return out
+
+
+def standing_validation_sets(stage: str, max_records: int = 0):
+    """(name, records, sparse) validation sets for training-time callbacks:
+    chairs for the chairs stages, then Sintel clean and final and KITTI, as
+    the reference attaches them (train.py:211-217). Sets whose dataset root
+    is missing or empty are skipped, so training runs on partial installs."""
+    from flow_supervisor_tpu_torch.data import datasets as D
+
+    candidates = []
+    if stage.startswith("chairs"):
+        candidates.append(("chairs", lambda: D.flying_chairs(training=False), False))
+    candidates.append(("sintel_clean", lambda: D.sintel(True, "clean"), False))
+    candidates.append(("sintel_final", lambda: D.sintel(True, "final"), False))
+    candidates.append(("kitti", lambda: D.kitti(training=True), True))
+
+    sets = []
+    for name, build, sparse in candidates:
+        try:
+            recs = build()
+        except OSError:
+            continue
+        if not recs:
+            continue
+        if max_records:
+            recs = recs[:max_records]
+        sets.append((name, recs, sparse))
+    return sets
+
+
+def eval_iters_policy(dataset_name: str, override: int = 0) -> int:
+    """Refinement iterations of evaluation (reference evaluate.py:166-174):
+    32 for Sintel, 24 otherwise; an override wins."""
+    if override:
+        return override
+    return 32 if dataset_name.startswith("sintel") else 24
+
+
+def make_train_validator(cfg, model):
+    """validate_fn(step, state) -> metrics dict for the training loop, or None
+    when no validation set is found.
+
+    It scores the live ``model``, whose parameters are the train state's
+    (``TrainState.params`` are the model's own tensors), at the eval iters
+    policy unless ``cfg.train.val_iters`` overrides it; sparse (KITTI) sets
+    pad to ``cfg.train.val_pad_bucket``, and ``cfg.train.val_warm_start``
+    chains flow within scenes. Keys are ``<set>_<metric>``."""
+    sets = standing_validation_sets(cfg.train.stage, cfg.train.val_max_records)
+    if not sets:
+        return None
+    evaluators = {
+        name: Evaluator(model, iters=eval_iters_policy(name, cfg.train.val_iters),
+                        pad_bucket=cfg.train.val_pad_bucket if sparse else 8)
+        for name, _, sparse in sets
+    }
+
+    def validate_fn(step: int, state) -> dict[str, float]:
+        out = {}
+        for name, recs, sparse in sets:
+            r = evaluators[name].evaluate(recs, sparse=sparse, warm_start=cfg.train.val_warm_start)
+            out.update({f"{name}_{k}": v for k, v in r.items()})
+        return out
+
+    validate_fn.evaluators = evaluators
+    return validate_fn

@@ -4,7 +4,7 @@ and write Middlebury ``.flo`` files (counterpart of the repository's
 
     python -m flow_supervisor_tpu_torch.extract_flow --source_dir frames/ \
         --target_dir out/ [--params raft.npz] [--iters 12] [--seed 0]
-        [--lookup_backend plane|fused|pallas]
+        [--lookup_backend plane|fused|pallas|einsum|zero|auto]
 
 Frames are ``.npy`` arrays [H, W, 3], float in [0, 1] or uint8, taken in
 sorted file-name order; pair (i, i+1) writes ``<target_dir>/<frame i>.flo``.

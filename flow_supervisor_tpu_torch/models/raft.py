@@ -16,7 +16,14 @@ package (channels dx-major in every backend):
   support correlations at every lookup (kernels/corr_fused.py);
 - ``"pallas"``: the same planes as ``"plane"``; K10 looks up every level's
   window in one launch, fp32 out as in JAX, cast to ``dtype``
-  (kernels/corr_lookup_v2.py).
+  (kernels/corr_lookup_v2.py);
+- ``"einsum"``: the volume pyramid [B, h8, w8, h2, w2] in ``corr_dtype``,
+  looked up by one-hot matrix products in plain PyTorch (ops/corr.py
+  ``corr_pyramid_lookup``);
+- ``"zero"``: the lookup ablation, zeros in place of the windows (the
+  einsum pyramid is still built, as in JAX);
+- ``"auto"``: resolved from the images' device at each forward
+  (``resolve_lookup_backend``): fused on the card, einsum elsewhere.
 
 Public layout follows the JAX package: images [B, H, W, 3], flows
 [B, H, W, 2], coords (x, y). Parameters are held in ``param_dtype``: by
@@ -60,6 +67,7 @@ from flow_supervisor_tpu_torch.models.encoders import BasicEncoder
 from flow_supervisor_tpu_torch.models.layers import init_weights_, nchw, nhwc
 from flow_supervisor_tpu_torch.models.update import BasicUpdateBlock
 from flow_supervisor_tpu_torch.ops.coords import coords_grid, downsample_shape, resize_flow
+from flow_supervisor_tpu_torch.ops.corr import build_corr_pyramid_from_fmaps, corr_pyramid_lookup
 from flow_supervisor_tpu_torch.ops.pad import crop_bboxes, pad_bboxes
 from flow_supervisor_tpu_torch.ops.upsample import upsample_convex
 
@@ -85,7 +93,7 @@ class RAFTConfig:
     corr_radius: int = 4
     dtype: torch.dtype = torch.float32  # compute dtype (bfloat16 for speed)
     corr_dtype: torch.dtype = torch.float32  # correlation plane storage dtype
-    lookup_backend: str = "plane"  # "plane" | "fused" | "pallas" (module docstring)
+    lookup_backend: str = "plane"  # one of LOOKUP_BACKENDS (module docstring)
     convex_upsampling: bool = True  # False (bilinear) comes with the small model
     small: bool = False
     gma: bool = False
@@ -103,12 +111,25 @@ _NOT_PORTED = {
 }
 # bilinear (non-convex) upsampling comes with the small model, which needs it
 _NOT_PORTED_OFF = {"convex_upsampling": _NOT_PORTED["small"]}
-LOOKUP_BACKENDS = ("plane", "fused", "pallas")
-_NOT_PORTED_BACKENDS = {
-    "auto": "the 'auto' lookup backend (ROADMAP Queue 1, item 2: it needs a GPU rule)",
-    "einsum": "the 'einsum' lookup backend (ROADMAP Queue 1, item 2)",
-    "zero": "the 'zero' lookup ablation (ROADMAP Queue 1, item 2)",
-}
+LOOKUP_BACKENDS = ("plane", "fused", "pallas", "einsum", "zero", "auto")
+# the backends without a backward: their kernels' backward passes are not ported
+_INFERENCE_ONLY = ("plane", "pallas")
+
+
+def resolve_lookup_backend(backend: str, device) -> str:
+    """The lookup backend that runs for images on ``device``: ``"auto"`` is
+    ``"fused"`` on a CUDA device and ``"einsum"`` elsewhere; any other name
+    is itself.
+
+    The JAX package's rule (``RAFTConfig.resolved``) takes fused on a TPU
+    and einsum elsewhere, so on a GPU it would take einsum. The port's rule
+    takes fused there: on the H100 it needs less device time than the plane
+    lookup (7.97 against 9.01 ms per 448x1024 forward at B=1, 41.6 against
+    47.8 at B=8), holds no volume (2.25 GB less at B=8), and is the only
+    kernel backend with a backward (PERF.md)."""
+    if backend != "auto":
+        return backend
+    return "fused" if torch.device(device).type == "cuda" else "einsum"
 
 
 class RAFT(nn.Module):
@@ -123,11 +144,6 @@ class RAFT(nn.Module):
         for field, what in _NOT_PORTED_OFF.items():
             if not getattr(cfg, field):
                 raise NotImplementedError(f"RAFTConfig({field}=False): {what} is not ported yet")
-        if cfg.lookup_backend in _NOT_PORTED_BACKENDS:
-            raise NotImplementedError(
-                f"RAFTConfig(lookup_backend={cfg.lookup_backend!r}): "
-                f"{_NOT_PORTED_BACKENDS[cfg.lookup_backend]} is not ported yet"
-            )
         if cfg.lookup_backend not in LOOKUP_BACKENDS:
             raise ValueError(
                 f"RAFTConfig(lookup_backend={cfg.lookup_backend!r}): one of {LOOKUP_BACKENDS}"
@@ -176,20 +192,31 @@ class RAFT(nn.Module):
 
     def build_corr(self, fmap1: torch.Tensor, fmap2: torch.Tensor):
         """"fused": the factors (f1, pooled f2 per level) in cfg.dtype;
-        "plane" / "pallas": per-level planes [B*h8*w8, h2, w2] in cfg.corr_dtype."""
+        "plane" / "pallas": per-level planes [B*h8*w8, h2, w2] in cfg.corr_dtype;
+        "einsum" / "zero": per-level volumes [B, h8, w8, h2, w2] in cfg.corr_dtype."""
         cfg = self.cfg
+        backend = resolve_lookup_backend(cfg.lookup_backend, fmap1.device)
         fmap1, fmap2 = fmap1.to(cfg.dtype), fmap2.to(cfg.dtype)
-        if cfg.lookup_backend == "fused":
+        if backend == "fused":
             return build_fused_pyramid(fmap1, fmap2, cfg.corr_levels)
+        if backend in ("einsum", "zero"):
+            return build_corr_pyramid_from_fmaps(fmap1, fmap2, cfg.corr_levels, cfg.corr_dtype)
         return build_plane_pyramid(fmap1, fmap2, cfg.corr_levels, cfg.corr_dtype)
 
     def lookup(self, pyramid, coords1: torch.Tensor) -> torch.Tensor:
         """Window channels [B, h8, w8, L * (2r+1)^2] in cfg.dtype at coords1."""
         cfg = self.cfg
-        if cfg.lookup_backend == "fused":
+        backend = resolve_lookup_backend(cfg.lookup_backend, coords1.device)
+        if backend == "fused":
             return corr_pyramid_lookup_fused(pyramid, coords1, cfg.corr_radius, cfg.dtype)
-        if cfg.lookup_backend == "pallas":
+        if backend == "pallas":
             return corr_pyramid_lookup_v2(pyramid, coords1, cfg.corr_radius).to(cfg.dtype)
+        if backend == "einsum":
+            return corr_pyramid_lookup(pyramid, coords1, cfg.corr_radius).to(cfg.dtype)
+        if backend == "zero":
+            k2 = cfg.corr_levels * (2 * cfg.corr_radius + 1) ** 2
+            zeros = torch.zeros((*coords1.shape[:3], k2), device=coords1.device)
+            return (zeros + torch.sum(coords1) * 0.0).to(cfg.dtype)
         return corr_pyramid_lookup_plane(pyramid, coords1, cfg.corr_radius, cfg.dtype)
 
     def iterate(
@@ -253,12 +280,13 @@ class RAFT(nn.Module):
         return self._flow(image1, image2)
 
     def _check_trainable(self) -> None:
-        """Training runs only through the fused lookup, the one with a backward."""
-        if torch.is_grad_enabled() and self.cfg.lookup_backend != "fused":
+        """Training runs through the lookups with a backward: fused (K8/K9),
+        einsum and zero (autograd), and so auto."""
+        if torch.is_grad_enabled() and self.cfg.lookup_backend in _INFERENCE_ONLY:
             raise NotImplementedError(
-                f"training through lookup_backend={self.cfg.lookup_backend!r}: only the fused "
-                "lookup has a backward (K8/K9); the plane and pallas kernels' backward "
-                "passes are not ported yet (ROADMAP Queue 2)"
+                f"training through lookup_backend={self.cfg.lookup_backend!r}: the plane and "
+                "pallas kernels' backward passes are not ported yet (ROADMAP Queue 2); the "
+                "fused, einsum, zero and auto lookups train"
             )
 
     def _flow(self, image1, image2, flow_init=None, iters=None, final_flow_only=False):
@@ -279,9 +307,11 @@ class RAFT(nn.Module):
 
     # ---- flow-supervisor forward (counterpart of RAFT.semi_forward) --------
 
-    def teacher_iterate(self, net, inp, pyramid, coords0, coords1, out_size, iters: int):
+    def teacher_iterate(self, net, inp, pyramid, coords0, coords1, out_size, iters: int,
+                        final_flow_only: bool = False):
         """Continue refinement with the teacher head."""
-        return self.iterate(net, inp, pyramid, coords0, coords1, out_size, iters, teacher=True)
+        return self.iterate(net, inp, pyramid, coords0, coords1, out_size, iters,
+                            final_flow_only, teacher=True)
 
     def _directional(
         self, image1, pyramid, teacher_pyramid, teacher_image1, crop_yx8,

@@ -9,6 +9,10 @@
   the full volume.
 - ``corr_pyramid_lookup_gather``: per level, a (2r+1)^2 bilinear window at
   coords / 2^level; out-of-bounds taps read 0; channels dx-major / dy-minor.
+- ``corr_pyramid_lookup``: the same windows by the JAX package's gather-free
+  formulation (the ``einsum`` lookup backend): per query, one-hot support
+  matrices pick the (2r+2)^2 support patch by two batched matrix products,
+  then the 4-tap bilinear combine.
 - ``window_support`` / ``combine_support``: the same window from per-query
   planes in two plain steps, the (2r+2)^2 support patch and its 4-tap
   bilinear combine (the plain versions behind the plane, fused and pallas
@@ -114,6 +118,63 @@ def corr_pyramid_lookup_gather(
     outs = [
         _lookup_level(vol, coords / (2.0 ** i), radius) for i, vol in enumerate(pyramid)
     ]
+    return torch.cat(outs, dim=-1)
+
+
+def _interp_matrix(pos: torch.Tensor, size: int, radius: int, dtype) -> torch.Tensor:
+    """One-hot support matrix R [B, Q, 2r+2, size] of positions pos [B, Q]:
+    R[..., u, c] = 1 iff c == floor(pos) + u - r. A support row outside
+    [0, size) matches no column, which gives out-of-bounds taps their 0. The
+    first support index is clamped to [-(2r+2), size] in float before the
+    integer conversion, which changes no match and keeps far-out coords
+    (up to 3e38) from overflowing."""
+    sup = 2 * radius + 2
+    base = torch.clamp(torch.floor(pos) - radius, -sup, size).long()
+    s = base[..., None] + torch.arange(sup, device=pos.device)
+    return (s[..., None] == torch.arange(size, device=pos.device)).to(dtype)
+
+
+def _lookup_level_matmul(vol: torch.Tensor, coords: torch.Tensor, radius: int) -> torch.Tensor:
+    """vol [B, h1, w1, h2, w2]; coords [B, h1, w1, 2] at this level's scale ->
+    [B, h1, w1, (2r+1)^2] fp32, channels dx-major. patch[q] = R_y[q] . vol[q]
+    . R_x[q]^T: the first product takes the volume's dtype (each output is one
+    volume value, so it is exact), the second runs in fp32."""
+    b, h1, w1, h2, w2 = vol.shape
+    k = 2 * radius + 1
+    q = h1 * w1
+    x = coords[..., 0].reshape(b, q).float()
+    y = coords[..., 1].reshape(b, q).float()
+    fx = (x - torch.floor(x))[..., None, None]
+    fy = (y - torch.floor(y))[..., None, None]
+    ry = _interp_matrix(y, h2, radius, vol.dtype)
+    rx = _interp_matrix(x, w2, radius, torch.float32)
+    tmp = torch.matmul(ry, vol.reshape(b, q, h2, w2)).float()
+    patch = torch.matmul(tmp, rx.transpose(-1, -2))  # [B, Q, y support, x support]
+    out = (
+        (1.0 - fy) * (1.0 - fx) * patch[..., :k, :k]
+        + (1.0 - fy) * fx * patch[..., :k, 1:]
+        + fy * (1.0 - fx) * patch[..., 1:, :k]
+        + fy * fx * patch[..., 1:, 1:]
+    )
+    return out.transpose(-1, -2).reshape(b, h1, w1, k * k)
+
+
+def corr_pyramid_lookup(
+    pyramid: list[torch.Tensor], coords: torch.Tensor, radius: int = 4
+) -> torch.Tensor:
+    """The ``einsum`` lookup: [B, h1, w1, L*(2r+1)^2] fp32 over the volumes of
+    ``build_corr_pyramid_from_fmaps``, the windows of
+    ``corr_pyramid_lookup_gather`` up to fp32 summation order. An fp32
+    volume multiplies in full fp32, as JAX's ``Precision.HIGHEST`` does, so
+    this raises on the card when the caller has let TF32 into fp32 matrix
+    products."""
+    vol = pyramid[0]
+    if vol.is_cuda and vol.dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the einsum lookup of an fp32 volume needs full fp32 matrix products; "
+            "torch.backends.cuda.matmul.allow_tf32 is on"
+        )
+    outs = [_lookup_level_matmul(v, coords / (2.0 ** i), radius) for i, v in enumerate(pyramid)]
     return torch.cat(outs, dim=-1)
 
 

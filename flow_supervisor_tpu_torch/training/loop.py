@@ -11,22 +11,27 @@ first two and a (sup_batch, unsup_batch) tuple for semi (each step's batch
 contract), from any source: the dataset pipeline is not ported yet. The loop
 moves each batch to the device, steps, and every ``log_every`` steps appends
 the log (losses, epe, steps/s) as one JSON row to
-``<ckpt_dir>/metrics.jsonl``. Batch-norm running statistics live in the
-model's buffers. Checkpoint files and standing validation are not ported
-(ROADMAP Queue 1, items 3-5). Training runs only through
-``lookup_backend="fused"``. It runs on the card unless the caller passes
-``device="cpu"``.
+``<ckpt_dir>/metrics.jsonl``. Standing validation runs as in the JAX loop:
+once before the first step unless ``skip_validation_at_start``, then every
+``val_step`` steps and after the last, each result a ``"prefix": "val"``
+row of the same file (``evaluation.make_train_validator``: none runs when no
+validation set is found). Batch-norm running statistics live in the
+model's buffers. Checkpoint files, which the JAX loop saves at every
+``val_step``, are not ported (ROADMAP Queue 1, item 4). Training runs
+through the lookups with a backward: fused, einsum, zero and auto. It runs
+on the card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from flow_supervisor_tpu_torch.config import ExperimentConfig
+from flow_supervisor_tpu_torch.evaluation import make_train_validator
 from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
 from flow_supervisor_tpu_torch.training import checkpoint as ckpt
 from flow_supervisor_tpu_torch.training.baseline import make_train_step
@@ -95,8 +100,12 @@ def train(
     max_steps: Optional[int] = None,
     device=None,
     pretrained: Optional[dict[str, torch.Tensor]] = None,
+    validate_fn: Optional[Callable[[int, TrainState], dict]] = None,
 ):
     """Train for cfg.train.num_steps (or max_steps) -> (model, state).
+
+    ``validate_fn(step, state)``: the standing validation (default: the
+    validators ``make_train_validator`` builds from the stage's datasets).
 
     ``pretrained``: a baseline model's state dict, transplanted into fnet,
     cnet and the update block (the recipe's start from a baseline
@@ -119,10 +128,23 @@ def train(
     tx = make_optimizer(cfg.train, batchnorm_params(model) if model.cfg.freeze_bn else ())
     state = TrainState.create(dict(model.named_parameters()), tx)
     step_fn = make_step(model, cfg)
+    if validate_fn is None:
+        validate_fn = make_train_validator(cfg, model)
     os.makedirs(cfg.ckpt_dir, exist_ok=True)
     total = cfg.train.num_steps if max_steps is None else max_steps
     last, since = time.perf_counter(), 0
     with open(os.path.join(cfg.ckpt_dir, "metrics.jsonl"), "a") as f:
+
+        def run_validation(at_step: int) -> None:
+            if validate_fn is None:
+                return
+            val = {k: float(v) for k, v in validate_fn(at_step, state).items()}
+            f.write(json.dumps({"step": at_step, "prefix": "val", **val}) + "\n")
+            f.flush()
+            print(f"val {at_step}: " + ", ".join(f"{k}={v:.4f}" for k, v in val.items()))
+
+        if not cfg.train.skip_validation_at_start:
+            run_validation(0)
         for step_i in range(total):
             batch = next(data_iter)
             batch = (tuple(_to(b, device) for b in batch) if isinstance(batch, (tuple, list))
@@ -137,4 +159,6 @@ def train(
                 f.write(json.dumps({"step": step_i + 1, "prefix": "train", **row}) + "\n")
                 f.flush()
                 print(f"step {step_i + 1}: " + ", ".join(f"{k}={v:.4f}" for k, v in row.items()))
+            if (step_i + 1) % cfg.train.val_step == 0 or step_i + 1 == total:
+                run_validation(step_i + 1)
     return model, state

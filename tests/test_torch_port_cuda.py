@@ -16,7 +16,7 @@ from flow_supervisor_tpu_torch.kernels import (
     conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm,
 )
 from flow_supervisor_tpu_torch.ops.corr import (
-    build_corr_pyramid_from_fmaps, combine_support, window_support,
+    build_corr_pyramid_from_fmaps, combine_support, corr_pyramid_lookup, window_support,
 )
 
 R = 4
@@ -668,3 +668,27 @@ def test_cuda_k11_matches_plain(cuda, dtype, radius, hw):
     one = corr_lookup.lookup_level_pallas(pyr[1], (c / 2).contiguous(), radius)
     assert corr_lookup.launches == n + 3
     torch.testing.assert_close(one, got[..., k2:2 * k2], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_einsum_lookup_matches_the_cpu(cuda, dtype):
+    """The einsum backend's lookup (plain PyTorch, no hand kernel) on the
+    card against the CPU on the same volumes, far-out coords included."""
+    f1, f2, coords = _lookup_inputs(b=2, h8=5, w8=9, c=64, seed=40)
+    coords[0, 0, 0] = (1e9, -1e9)
+    coords[1, 4, 8] = (-3e38, 3e38)
+    pyr = build_corr_pyramid_from_fmaps(torch.from_numpy(f1), torch.from_numpy(f2), 4, dtype)
+    c = torch.from_numpy(coords)
+    want = corr_pyramid_lookup(pyr, c, R)
+    got = corr_pyramid_lookup([v.to(cuda) for v in pyr], c.to(cuda), R)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_einsum_lookup_refuses_tf32(cuda, monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    f1, f2, coords = _lookup_inputs(b=1, h8=5, w8=9, c=64, seed=41)
+    pyr = build_corr_pyramid_from_fmaps(torch.from_numpy(f1).to(cuda), torch.from_numpy(f2).to(cuda), 4)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        corr_pyramid_lookup(pyr, torch.from_numpy(coords).to(cuda), R)

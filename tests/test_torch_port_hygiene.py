@@ -1,5 +1,6 @@
-"""The port stands alone: it imports no JAX, no flax, no yaml and nothing of
-the JAX package, on CPU tensors its wrappers take the plain PyTorch versions
+"""The port stands alone: it imports no JAX, no flax, no yaml, no cv2 and
+nothing of the JAX package (every module, the data readers and evaluation
+included), on CPU tensors its wrappers take the plain PyTorch versions
 without launching (or building) any kernel, and its entry points refuse to
 run without a card unless the caller asks for the CPU."""
 import os
@@ -22,6 +23,10 @@ import flow_supervisor_tpu_torch.profile_forward, flow_supervisor_tpu_torch.conf
 import flow_supervisor_tpu_torch.training.loop, flow_supervisor_tpu_torch.training.semi
 import flow_supervisor_tpu_torch.training.unsup, flow_supervisor_tpu_torch.training.baseline
 import flow_supervisor_tpu_torch.losses.unsupervised, flow_supervisor_tpu_torch.ops.warp
+import flow_supervisor_tpu_torch.data.paths, flow_supervisor_tpu_torch.data.io
+import flow_supervisor_tpu_torch.data.datasets, flow_supervisor_tpu_torch.data.pipeline
+import flow_supervisor_tpu_torch.metrics, flow_supervisor_tpu_torch.utils.warm_start
+import flow_supervisor_tpu_torch.submission
 g = torch.Generator().manual_seed(0)
 model = RAFT(RAFTConfig(iters=2, lookup_backend=BACKEND), generator=g)
 img = torch.rand(BATCH, 32, 48, 3, generator=g)
@@ -112,7 +117,9 @@ def test_cpu_forward_imports_no_jax_and_launches_nothing():
 
 
 @pytest.mark.parametrize(
-    "backend,batch", [("fused", 1), ("fused", 2), ("pallas", 1)], ids=["fused", "fused_b2", "pallas"]
+    "backend,batch",
+    [("fused", 1), ("fused", 2), ("pallas", 1), ("einsum", 1), ("zero", 1), ("auto", 1)],
+    ids=["fused", "fused_b2", "pallas", "einsum", "zero", "auto"],
 )
 def test_cpu_forward_per_lookup_backend_launches_nothing(backend, batch):
     res = _cpu_forward(backend, batch)
@@ -157,18 +164,21 @@ def test_cpu_unsup_baseline_and_smurf_steps_import_no_jax_and_launch_nothing(mod
 
 
 def test_no_source_file_imports_jax():
-    offenders = []
+    """No file of the port, nor chip_smoke.py, imports jax, flax, yaml, cv2
+    or the JAX package."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG):
-        for name in files:
-            if name.endswith((".py", ".cu", ".cuh")):
-                path = os.path.join(root, name)
-                with open(path) as f:
-                    for line in f:
-                        s = line.strip()
-                        if s.startswith(("import jax", "from jax", "import flax", "from flax",
-                                         "import yaml", "from yaml",
-                                         "from flow_supervisor_tpu.", "import flow_supervisor_tpu.")):
-                            offenders.append(f"{path}: {s}")
+        paths += [os.path.join(root, n) for n in files if n.endswith((".py", ".cu", ".cuh"))]
+    offenders = []
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                s = line.strip()
+                if s.startswith(("import jax", "from jax", "import flax", "from flax",
+                                 "import yaml", "from yaml", "import cv2", "from cv2",
+                                 "from flow_supervisor_tpu.", "import flow_supervisor_tpu.",
+                                 "from flow_supervisor_tpu import")):
+                    offenders.append(f"{path}: {s}")
     assert offenders == []
 
 

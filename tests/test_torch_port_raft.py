@@ -6,8 +6,10 @@ parameters (with random batch-norm statistics) are carried to the port by
 the port must match to max |d flow_up| < 2e-3 px, the golden bound of
 docs/PARITY.md, with and without ``flow_init`` and ``final_flow_only``, and
 under each of the port's lookup backends (plane, fused at B=1 and B=2,
-pallas) against the same JAX einsum model: every backend computes the same
-windows, so only fp32 summation order differs.
+pallas, einsum, and auto, which is einsum on the CPU) against the same JAX
+einsum model: every backend computes the same windows, so only fp32
+summation order differs. The zero ablation is held against the JAX model
+with the zero backend.
 """
 import jax
 import jax.numpy as jnp
@@ -19,7 +21,7 @@ from flow_supervisor_tpu.convert import convert_torch_raft
 from flow_supervisor_tpu.models import RAFT as JRAFT, RAFTConfig as JRAFTConfig
 from flow_supervisor_tpu_torch.convert import from_flax, load_flax_npz
 from flow_supervisor_tpu_torch.evaluation import run_pair
-from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
+from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig, resolve_lookup_backend
 
 H, W, ITERS = 64, 96, 3
 BOUND = 2e-3  # px
@@ -143,31 +145,69 @@ def backend_models(jax_model):
     _, params, stats = jax_model
     state = from_flax(params, stats)
     models = {}
-    for backend in ("plane", "fused", "pallas"):
+    for backend in ("plane", "fused", "pallas", "einsum", "zero", "auto"):
         models[backend] = RAFT(RAFTConfig(iters=ITERS, lookup_backend=backend))
         models[backend].load_state_dict(state)
     return models
 
 
 @pytest.mark.parametrize(
-    "backend,batch", [("plane", 1), ("fused", 1), ("fused", 2), ("pallas", 1)],
-    ids=["plane", "fused_b1_k6", "fused_b2_k7", "pallas"],
+    "backend,batch",
+    [("plane", 1), ("fused", 1), ("fused", 2), ("pallas", 1), ("einsum", 1), ("einsum", 2),
+     ("zero", 1), ("auto", 1)],
+    ids=["plane", "fused_b1_k6", "fused_b2_k7", "pallas", "einsum", "einsum_b2", "zero",
+         "auto_cpu_einsum"],
 )
 def test_forward_per_lookup_backend_matches_jax(jax_model, backend_models, pair, backend, batch):
     img1, img2, _ = pair
     if batch == 2:  # a second, different pair: the reversed one, flipped left-right
         img1, img2 = (np.concatenate([a, b[:, :, ::-1]]) for a, b in ((img1, img2), (img2, img1)))
-    want = _jax_apply(jax_model, img1, img2)
+    if backend == "zero":
+        zero = JRAFT(JRAFTConfig(lookup_backend="zero", scan_iters=True, iters=ITERS).resolved())
+        want = _jax_apply((zero,) + jax_model[1:], img1, img2)
+    else:
+        want = _jax_apply(jax_model, img1, img2)
     got = backend_models[backend](torch.from_numpy(img1.copy()), torch.from_numpy(img2.copy()))
     assert tuple(got["flow_up"].shape) == want["flow_up"].shape == (ITERS, batch, H, W, 2)
     assert np.abs(got["flow_up"].numpy() - want["flow_up"]).max() < BOUND
     assert np.abs(got["flow_low"].numpy() - want["flow_low"]).max() < BOUND
 
 
-@pytest.mark.parametrize("backend", ["auto", "einsum", "zero"])
-def test_unported_lookup_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RAFT(RAFTConfig(lookup_backend=backend))
+def test_auto_backend_rule_takes_fused_on_cuda_and_einsum_elsewhere():
+    """The port's rule (JAX's takes einsum everywhere but a TPU)."""
+    assert resolve_lookup_backend("auto", torch.device("cpu")) == "einsum"
+    assert resolve_lookup_backend("auto", "cpu") == "einsum"
+    assert resolve_lookup_backend("auto", torch.device("cuda")) == "fused"
+    assert resolve_lookup_backend("auto", "cuda:0") == "fused"
+    for backend in ("plane", "fused", "pallas", "einsum", "zero"):
+        assert resolve_lookup_backend(backend, "cuda") == backend
+
+
+def test_default_experiment_config_builds():
+    """ModelCfg's default lookup backend is auto, which RAFT now takes."""
+    from flow_supervisor_tpu_torch.config import ExperimentConfig
+    from flow_supervisor_tpu_torch.training.loop import build_model
+
+    model = build_model(ExperimentConfig())
+    assert model.cfg.lookup_backend == "auto"
+
+
+@pytest.mark.parametrize("backend", ["einsum", "zero", "auto"])
+def test_einsum_zero_and_auto_lookups_train(backend):
+    """einsum and zero (and auto, einsum here) have a backward, as in JAX."""
+    model = RAFT(RAFTConfig(iters=2, lookup_backend=backend), generator=torch.Generator().manual_seed(0))
+    img = torch.rand(1, 32, 48, 3, generator=torch.Generator().manual_seed(1))
+    out = model.train_forward(img, img.flip(2))
+    out["flow_up"].square().mean().backward()
+    upd = [p.grad for p in model.update_block.parameters()]
+    assert all(g is not None and torch.isfinite(g).all() for g in upd)
+    assert any(g.abs().max() > 0 for g in upd)
+    fnet = [p.grad for p in model.fnet.parameters()]
+    if backend == "zero":  # the ablation's windows carry nothing back to fnet
+        assert all(g is None or not g.any() for g in fnet)
+    else:
+        assert all(g is not None and torch.isfinite(g).all() for g in fnet)
+        assert any(g.abs().max() > 0 for g in fnet)
 
 
 def test_unknown_lookup_backend_is_refused():
