@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's RAFT inference path, its evaluation path,
 its three train steps (Baseline, Unsup, flow-supervisor semi with and
-without the teacher SMURF loss) and the two kernels that no model path
-reaches (K5, K11) on one NVIDIA GPU.
+without the teacher SMURF loss), its training-data path through the train
+CLI, and the two kernels that no model path reaches (K5, K11) on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -91,7 +92,25 @@ each printing one JSON line per check or configuration:
    (B=10, 368x496, unfrozen batch norm; K8/K9 timed at its shape too); every
    K2 launch of a step must run the conv's tensor-core body. Beside K8's and
    K9's times, the share of their (level, tile) pairs that took the tile
-   path; every K3 / K4 launch of a step must run the norm's vector body.
+   path; every K3 / K4 launch of a step must run the norm's vector body;
+7. train_data: a dataset tree at the recipes' sizes written by the port's
+   ``data/synthetic.py`` (Sintel 436x1024 training with flows and test,
+   clean and final, 3 frames a scene; FlyingThings 540x960 with .pfm flows;
+   FlyingChairs 384x512, 10 training pairs and 1 validation pair), then the
+   train CLI (``python -m flow_supervisor_tpu_torch.train``) in this process
+   with the launch counters reset before each run: the chairs Baseline stage
+   (train.sh:4-6, B=10) for 2 steps, which saves a checkpoint; the Sintel
+   semi recipe (train.sh:13-20) from it by --pretrained_ckpt, 6 steps,
+   checkpoints at 3 and 6, standing validation (one record a set) at 0, 3
+   and 6, 4 loader workers; the same command to 8 steps, which must resume
+   at 6 with the optimizer count 6. Each run must launch the kernels of its
+   step at least its steps' count, write its metrics rows with finite
+   losses and its checkpoints. Then for the semi recipe: the loader alone
+   (``fetch_dataloader``, batches/s over 10 batches after 2, with 0 and 4
+   workers), steps/s of the composed step (the loader's next batch, then
+   the step; 4 workers and serial) against in-memory batches (host clock)
+   beside train_main's in-memory rate, and the device idle share of
+   composed steps.
 
 Then it prints K2's and K5's device time per fnet stage shape beside
 ``F.conv2d``'s, a JSON line of the kernels (launches in their configuration's
@@ -205,6 +224,24 @@ STEP_LAUNCHES = {
     "baseline": {"conv3x3_stats": 10, "norm_stats": 5, "norm_apply": 15,
                  "corr_fused_level": ITERS * LEVELS, "bwd_df1": ITERS, "bwd_df2": ITERS},
 }
+# the train_data phase: a dataset tree at the recipes' sizes (Sintel 436x1024
+# frames, FlyingThings 540x960 with .pfm flows, FlyingChairs 384x512, 10
+# training pairs and 1 validation pair; KITTI, HD1K and DAVIS at 48x64),
+# written by the port's data/synthetic.py; the CLI runs the chairs Baseline
+# stage (train.sh:4-6) and the Sintel semi recipe (train.sh:13-20) from it
+TRAIN_DATA_SIZES = {"sintel": (436, 1024), "things": (540, 960), "chairs": (384, 512)}
+TRAIN_DATA_CHAIRS_PAIRS = 11
+CHAIRS_FLAGS = ["--stage", "chairs", "--iters", "12", "--image_size", "368", "496",
+                "--val_step", "5000", "--lr", "4e-4", "--weight_decay", "1e-4", "--batch_size", "10"]
+SEMI_FLAGS = ["--stage", "semi-sintel_unsup_test-things_unsup", "--model_type", "raft-semi",
+              "--unsup_weight", "1.0", "--unsup_image_size", "368", "768", "--image_size", "400",
+              "720", "--full_size", "432", "1024", "--iters", "12", "--lr", "1e-5",
+              "--lr_schedule", "exponential", "--lr_decay_steps", "25000", "--weight_decay", "0.0",
+              "--batch_size", "1", "--lfr_weight", "1.0", "--lfl_weight", "1.0",
+              "--lfr_loss_type", "robust", "--lfl_loss_decay_rate", "1.0"]
+CHAIRS_STEPS, SEMI_STEPS, SEMI_VAL_STEP, RESUME_STEPS = 2, 6, 3, 8
+LOADER_WARM, LOADER_TIMED = 2, 10  # batches before timing, batches timed
+COMPOSED_WARM, COMPOSED_TIMED, COMPOSED_PROFILED = 2, 5, 3  # steps
 # Limits of the card-vs-CPU semi step (phase 5: fp32, 64x96 crops, 3 + 3
 # iterations). The step is chaotic at fp32 rounding (ReLU kinks and bilinear
 # taps through the loops): scaling every weight by 1 + 2^-24 * N(0, 1) moves
@@ -1890,6 +1927,7 @@ def phase_train_main(dev):
         t["launches"] = got[name]
     res.update(teacher_iters=ITERS, bwd_kernels=times)
     emit(res)
+    semi_res = res
     del model, dev_batches
     torch.cuda.empty_cache()
 
@@ -1911,7 +1949,213 @@ def phase_train_main(dev):
         emit(res)
         del model, dev_batches
         torch.cuda.empty_cache()
-    return got, times
+    return got, times, semi_res
+
+
+def metrics_rows(run: str) -> list:
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def cli_run(where: str, argv: list, want_steps: dict, train_steps: list, val_steps: list,
+            ckpt_steps: list) -> dict:
+    """``python -m flow_supervisor_tpu_torch.train`` in this process on the
+    card, with the launch counters reset: every kernel of ``want_steps``
+    (kernel -> launches per step) launched at least that often per step of
+    this run, no other kernel but the validation's K6 and encoder kernels;
+    the run's metrics rows (train and val steps, every loss finite) and
+    checkpoint steps as listed. Returns the run's summary."""
+    import torch
+
+    from flow_supervisor_tpu_torch.train import main as train_cli
+    from flow_supervisor_tpu_torch.training import checkpoint as ckpt
+
+    run = argv[0]
+    before = len(metrics_rows(run)) if os.path.exists(os.path.join(run, "metrics.jsonl")) else 0
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = train_cli(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launch_counts()
+    if rc != 0:
+        raise AssertionError(f"{where}: the train CLI exited {rc}")
+    rows = metrics_rows(run)[before:]
+    steps = len(train_steps)
+    allowed = set(want_steps) | {"corr_fused_all", "conv3x3_stats", "norm_stats", "norm_apply"}
+    short = {k: (got[k], steps * n) for k, n in want_steps.items() if got[k] < steps * n}
+    stray = {k: v for k, v in got.items() if v and k not in allowed}
+    if short or stray:
+        raise AssertionError(f"{where}: launches {got}: short {short}, not on the path {stray}")
+    check_tc_launches(where, got["conv3x3_stats"])
+    check_vector_launches(where, got["norm_stats"] + got["norm_apply"])
+    train_rows = [r for r in rows if r["prefix"] == "train"]
+    if ([r["step"] for r in train_rows] != train_steps
+            or [r["step"] for r in rows if r["prefix"] == "val"] != val_steps
+            or not all(math.isfinite(v) for r in rows for v in r.values() if isinstance(v, float))):
+        raise AssertionError(f"{where}: bad metrics rows {rows}")
+    if ckpt.checkpoint_steps(run) != ckpt_steps:
+        raise AssertionError(f"{where}: checkpoints {ckpt.checkpoint_steps(run)} != {ckpt_steps}")
+    last = ckpt.restore_checkpoint(run, map_location="cpu")
+    if last["opt_state"] is None or last["opt_state"].count != ckpt_steps[-1]:
+        raise AssertionError(f"{where}: optimizer count at step {last['step']} is "
+                             f"{last['opt_state'] and last['opt_state'].count}")
+    rates = [r["steps_per_sec"] for r in train_rows[1:]]  # the first holds the warm-up
+    return {"seconds": seconds, "launches": got, "train_steps": train_steps,
+            "val_steps": val_steps, "checkpoints": ckpt_steps,
+            "optimizer_count": last["opt_state"].count,
+            "last_train_row": {k: v for k, v in train_rows[-1].items() if k != "prefix"},
+            "cli_steps_per_s_median": sorted(rates)[len(rates) // 2] if rates else None}
+
+
+def loader_rate(train_cfg, workers: int) -> dict:
+    """``fetch_dataloader`` alone: batches/s over LOADER_TIMED batches after
+    LOADER_WARM, by the host clock."""
+    import dataclasses
+
+    from flow_supervisor_tpu_torch.data.pipeline import fetch_dataloader
+
+    loader = fetch_dataloader(dataclasses.replace(train_cfg, loader_workers=workers))
+    try:
+        for _ in range(LOADER_WARM):
+            next(loader)
+        t0 = time.perf_counter()
+        for _ in range(LOADER_TIMED):
+            next(loader)
+        seconds = time.perf_counter() - t0
+    finally:
+        loader.close()
+    return {"loader_workers": workers, "batches": LOADER_TIMED, "seconds": seconds,
+            "batches_per_s": LOADER_TIMED / seconds}
+
+
+def phase_train_data(dev, in_memory: dict):
+    """The training-data path at real sizes: a dataset tree written by the
+    port's data/synthetic.py, then through the train CLI (on the card, the
+    auto lookup: fused) (a) the chairs Baseline stage, B=10, 2 steps, which
+    saves a checkpoint; (b) the Sintel semi recipe from it by
+    --pretrained_ckpt, 6 steps with checkpoints at 3 and 6 and standing
+    validation (one record a set); (c) the same command to 8 steps, which
+    resumes at 6 with the optimizer state (its count 6, then 8). Then, for
+    the semi recipe: the loader alone (batches/s with 0 and 4 workers), and
+    steps/s of the composed step (the next batch from the loader, then the
+    step; 4 workers, then serial) against in-memory batches of the same
+    recipe, all by the host clock in this phase, beside train_main's
+    in-memory rate (CUDA events), and the device idle share of composed
+    steps with 4 workers (torch.profiler)."""
+    import dataclasses
+
+    import torch
+
+    from flow_supervisor_tpu_torch.config import ExperimentConfig
+    from flow_supervisor_tpu_torch.data.pipeline import fetch_dataloader
+    from flow_supervisor_tpu_torch.data.synthetic import build_synthetic_tree
+    from flow_supervisor_tpu_torch.profile_forward import profile
+    from flow_supervisor_tpu_torch.training import checkpoint as ckpt
+    from flow_supervisor_tpu_torch.training.loop import _to, build_model, make_step
+    from flow_supervisor_tpu_torch.training.optim import batchnorm_params, make_optimizer
+    from flow_supervisor_tpu_torch.training.state import TrainState
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "datasets")
+        t0 = time.perf_counter()
+        build_synthetic_tree(root, sizes=TRAIN_DATA_SIZES, chairs_pairs=TRAIN_DATA_CHAIRS_PAIRS)
+        emit({"phase": "train_data", "tree_seconds": time.perf_counter() - t0,
+              "sizes": {k: list(v) for k, v in TRAIN_DATA_SIZES.items()},
+              "chairs_pairs": TRAIN_DATA_CHAIRS_PAIRS})
+        chairs, semi = os.path.join(tmp, "chairs"), os.path.join(tmp, "semi")
+        semi_argv = [semi] + SEMI_FLAGS + [
+            "--pretrained_ckpt", chairs, "--num_steps", str(SEMI_STEPS), "--val_step",
+            str(SEMI_VAL_STEP), "--val_max_records", "1", "--log_every", "1",
+            "--loader_workers", "4"]
+        with data_root(root):
+            runs = {"chairs": cli_run(
+                "train_data chairs", [chairs] + CHAIRS_FLAGS + [
+                    "--num_steps", str(CHAIRS_STEPS), "--val_max_records", "1", "--log_every", "1"],
+                STEP_LAUNCHES["baseline"], [1, 2], [0, 2], [CHAIRS_STEPS])}
+            runs["semi"] = cli_run("train_data semi", semi_argv, TRAIN_LAUNCHES,
+                                   list(range(1, SEMI_STEPS + 1)), [0, 3, 6], [3, 6])
+            at_resume = ckpt.restore_checkpoint(semi, map_location="cpu")
+            if at_resume["step"] != SEMI_STEPS or at_resume["opt_state"].count != SEMI_STEPS:
+                raise AssertionError(f"train_data: the checkpoint to resume from is step "
+                                     f"{at_resume['step']}, count {at_resume['opt_state'].count}")
+            runs["resume"] = cli_run(
+                "train_data resume", semi_argv[:semi_argv.index("--num_steps")] + [
+                    "--num_steps", str(RESUME_STEPS)] + semi_argv[semi_argv.index("--num_steps") + 2:],
+                TRAIN_LAUNCHES, [7, 8], [8], [3, 6, 8])
+            # steps 7 and 8 alone took the count from 6 to 8: the resume restored it
+            runs["resume"]["resumed_from"] = {"step": at_resume["step"],
+                                              "optimizer_count": at_resume["opt_state"].count}
+            for name, res in runs.items():
+                emit({"phase": "train_data", "run": name, **res})
+
+            cfg = ExperimentConfig.load_yaml(semi)
+            rates = [loader_rate(cfg.train, w) for w in (0, 4)]
+            emit({"phase": "train_data", "loader_alone": rates,
+                  "stage": cfg.train.stage, "batch_size": cfg.train.batch_size})
+
+            # composed steps (loader + step) against in-memory batches, from
+            # the resumed run's weights and optimizer state
+            model = build_model(cfg)
+            last = ckpt.restore_checkpoint(semi, map_location="cpu")
+            model.load_state_dict(last["model"])
+            model.to(dev)
+            state = TrainState.create(dict(model.named_parameters()),
+                                      make_optimizer(cfg.train, batchnorm_params(model)))
+            state.step, state.opt_state = last["step"], ckpt.optimizer_state_to(last["opt_state"], dev)
+            step = make_step(model, cfg)
+            holder = {"state": state, "i": 0}
+
+            def rate(fn):
+                for _ in range(COMPOSED_WARM):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(COMPOSED_TIMED):
+                    log = fn()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                if not all(math.isfinite(float(v)) for v in log.values()):
+                    raise AssertionError(f"train_data: non-finite log {log}")
+                return COMPOSED_TIMED / seconds
+
+            composed_rates, fixed, prof = {}, None, None
+            for workers in (cfg.train.loader_workers, 0):  # the recipe's 4, then serial
+                loader = fetch_dataloader(dataclasses.replace(cfg.train, loader_workers=workers))
+                try:
+                    if fixed is None:
+                        fixed = [tuple(_to(b, dev) for b in next(loader)) for _ in range(2)]
+
+                    def composed():
+                        batch = tuple(_to(b, dev) for b in next(loader))
+                        holder["state"], log = step(holder["state"], batch)
+                        return log
+
+                    composed_rates[workers] = rate(composed)
+                    if prof is None:
+                        prof = profile(composed, n=COMPOSED_PROFILED)
+                finally:
+                    loader.close()
+
+            def in_memory_step():
+                holder["state"], log = step(holder["state"], fixed[holder["i"] % 2])
+                holder["i"] += 1
+                return log
+
+            mem_rate = rate(in_memory_step)
+        comp_rate = composed_rates[cfg.train.loader_workers]
+        emit({"phase": "train_data", "ok": True, "recipe": "semi sintel (train.sh)",
+              "loader_workers": cfg.train.loader_workers, "timed_steps": COMPOSED_TIMED,
+              "composed_steps_per_s": comp_rate,
+              "composed_steps_per_s_by_workers": {str(k): v for k, v in composed_rates.items()},
+              "in_memory_steps_per_s": mem_rate,
+              "train_main_in_memory_steps_per_s": in_memory.get("steps_per_s"),
+              "composed_over_in_memory": comp_rate / mem_rate,
+              "composed_device_idle_share": prof.get("device_idle_share"),
+              "composed_device_ms_per_step": prof.get("device_ms_per_forward"),
+              "composed_launches_per_step": prof.get("launches_per_forward"),
+              "profiled_steps": COMPOSED_PROFILED})
 
 
 def main() -> int:
@@ -1943,7 +2187,8 @@ def main() -> int:
     phase_requests(dev)
     phase_evaluate(dev)
     phase_train_parity(dev)
-    launches[("train", 1)], times[("train", 1)] = phase_train_main(dev)
+    launches[("train", 1)], times[("train", 1)], semi_res = phase_train_main(dev)
+    phase_train_data(dev, semi_res)
 
     kernels = []
     for name, (src, rep) in SOURCES.items():

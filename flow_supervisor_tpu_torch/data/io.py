@@ -3,8 +3,9 @@ numpy and the standard library's ``zlib``: no cv2, PIL or imageio.
 
 - ``.flo`` (Middlebury): ``read_flo`` / ``write_flo`` of ``flo.py``.
 - ``.pfm`` (FlyingThings): PF / Pf header, the scale's sign gives the byte
-  order, rows stored bottom-up.
-- ``.ppm`` (chairs): binary P6 with 8-bit samples.
+  order, rows stored bottom-up; ``write_pfm`` writes little-endian.
+- ``.ppm`` (chairs): binary P6 with 8-bit samples (``read_ppm`` /
+  ``write_ppm``).
 - PNG: ``read_png`` decodes 8- and 16-bit (big-endian) samples of colour
   types 0 (grey), 2 (RGB), 3 (palette), 4 (grey + alpha) and 6 (RGBA) and
   all five scanline filters; it refuses Adam7-interlaced files.
@@ -28,7 +29,8 @@ import numpy as np
 
 from flow_supervisor_tpu_torch.flo import read_flo, write_flo
 
-__all__ = ["read_flo", "write_flo", "read_pfm", "read_ppm", "read_png", "write_png",
+__all__ = ["read_flo", "write_flo", "read_pfm", "write_pfm", "read_ppm", "write_ppm",
+           "read_png", "write_png",
            "read_image", "read_flow_kitti", "write_flow_kitti", "read_flow_any"]
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -54,6 +56,28 @@ def read_pfm(path: str) -> np.ndarray:
     if data.size != int(np.prod(shape)):
         raise ValueError(f"truncated PFM file {path}")
     return np.ascontiguousarray(np.flipud(data.reshape(shape)).astype(np.float32))
+
+
+def write_pfm(path: str, data: np.ndarray) -> None:
+    """[H, W, 3] (PF) or [H, W] (Pf) as a little-endian PFM file."""
+    data = np.asarray(data, np.float32)
+    if data.ndim not in (2, 3) or (data.ndim == 3 and data.shape[2] != 3):
+        raise ValueError(f"write_pfm takes [H, W] or [H, W, 3], got {data.shape}")
+    h, w = data.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"PF\n" if data.ndim == 3 else b"Pf\n")
+        f.write(b"%d %d\n-1.0\n" % (w, h))
+        np.ascontiguousarray(np.flipud(data), "<f4").tofile(f)
+
+
+def write_ppm(path: str, img: np.ndarray) -> None:
+    """[H, W, 3] uint8 RGB as a binary (P6) PPM file."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"write_ppm takes [H, W, 3] uint8, got {img.shape} {img.dtype}")
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (img.shape[1], img.shape[0]))
+        f.write(np.ascontiguousarray(img).tobytes())
 
 
 def read_ppm(path: str) -> np.ndarray:

@@ -8,18 +8,22 @@ The model type picks the step, as in the JAX package: ``raft-baseline``
 (training/baseline.py), ``raft-unsup`` (training/unsup.py) or ``raft-semi``
 (training/semi.py). ``data_iter`` yields one batch dict per step for the
 first two and a (sup_batch, unsup_batch) tuple for semi (each step's batch
-contract), from any source: the dataset pipeline is not ported yet. The loop
+contract), from ``data.pipeline.fetch_dataloader`` or any source. The loop
 moves each batch to the device, steps, and every ``log_every`` steps appends
 the log (losses, epe, steps/s) as one JSON row to
 ``<ckpt_dir>/metrics.jsonl``. Standing validation runs as in the JAX loop:
-once before the first step unless ``skip_validation_at_start``, then every
-``val_step`` steps and after the last, each result a ``"prefix": "val"``
-row of the same file (``evaluation.make_train_validator``: none runs when no
-validation set is found). Batch-norm running statistics live in the
-model's buffers. Checkpoint files, which the JAX loop saves at every
-``val_step``, are not ported (ROADMAP Queue 1, item 4). Training runs
-through the lookups with a backward: fused, einsum, zero and auto. It runs
-on the card unless the caller passes ``device="cpu"``.
+once before the first step of a new run unless ``skip_validation_at_start``,
+then every ``val_step`` steps and after the last, each result a ``"prefix":
+"val"`` row of the same file (``evaluation.make_train_validator``: none runs
+when no validation set is found). Batch-norm running statistics live in
+the model's buffers. Checkpoints (``training/checkpoint.py``) are saved at
+every ``val_step`` and after the last step; a run resumes from its
+directory's latest one, restoring the optimizer state and the step. That
+differs from the JAX loop, which rebuilds the optimizer state on resume, so
+its schedules and Adam's bias correction start again from 0. In both
+packages the data stream starts again from the seed. Training runs through
+the lookups with a backward: fused, einsum, zero and auto. It runs on the
+card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -94,44 +98,118 @@ def make_step(model, cfg: ExperimentConfig, debug_grads: bool = False):
                            debug_grads=debug_grads)
 
 
+def check_config(cfg: ExperimentConfig) -> None:
+    """Refuse, before any work, a config the port does not train: another
+    model type, the frame-triplet stage, more than one device."""
+    if cfg.model.model_type not in MODEL_TYPES:
+        raise NotImplementedError(
+            f"model_type {cfg.model.model_type!r}: the port trains {MODEL_TYPES}"
+        )
+    if cfg.train.stage == "sintel_multiframe":
+        raise ValueError(
+            "stage sintel_multiframe yields frame triplets (image1-3, flow1/2, valid1/2); "
+            "no train step reads them (the JAX package hands them to a step that reads "
+            "batch['flow'] and fails there)"
+        )
+    if cfg.train.data_parallel > 1 or cfg.train.dcn_parallel > 1:
+        raise NotImplementedError(
+            f"data_parallel={cfg.train.data_parallel}, dcn_parallel={cfg.train.dcn_parallel}: "
+            "the port trains on one device (parallelism is ROADMAP Queue 1, item 9)"
+        )
+
+
+def _restore_or_init(model: RAFT, cfg: ExperimentConfig):
+    """Load the latest checkpoint of cfg.ckpt_dir into ``model`` -> (step,
+    its AdamWState), or start from cfg.train.pretrained_ckpt's fnet, cnet and
+    update block (the teacher head copied from the update block) -> (0, None)."""
+    restored = ckpt.restore_checkpoint(cfg.ckpt_dir, map_location="cpu")
+    if restored is not None:
+        model.load_state_dict(restored["model"])
+        print(f"resumed from {cfg.ckpt_dir} at step {restored['step']}")
+        return restored["step"], restored["opt_state"]
+    if cfg.train.pretrained_ckpt:
+        pre = ckpt.restore_checkpoint(cfg.train.pretrained_ckpt, map_location="cpu")
+        if pre is None:
+            raise FileNotFoundError(f"no checkpoint in pretrained_ckpt {cfg.train.pretrained_ckpt!r}")
+        sd = ckpt.initialize_from_baseline(model.state_dict(), pre["model"])
+        model.load_state_dict(ckpt.initialize_teacher_net(sd) if model.cfg.teacher else sd)
+        print(f"initialized from pretrained {cfg.train.pretrained_ckpt}")
+    return 0, None
+
+
+class _Trace:
+    """A torch.profiler trace of the steps between start() and stop(),
+    written to <trace_dir>/trace.json."""
+
+    def __init__(self, trace_dir: str, device: torch.device):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.trace_dir, self.device = trace_dir, device
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        self.prof = profile(activities=acts)
+        self.running = False
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def start(self) -> None:
+        self._sync()
+        self.prof.start()
+        self.running = True
+
+    def stop(self) -> None:
+        self._sync()
+        self.prof.stop()
+        self.running = False
+        os.makedirs(self.trace_dir, exist_ok=True)
+        path = os.path.join(self.trace_dir, "trace.json")
+        self.prof.export_chrome_trace(path)
+        print(f"trace written to {path}")
+
+
 def train(
     cfg: ExperimentConfig,
     data_iter,
     max_steps: Optional[int] = None,
     device=None,
-    pretrained: Optional[dict[str, torch.Tensor]] = None,
     validate_fn: Optional[Callable[[int, TrainState], dict]] = None,
 ):
     """Train for cfg.train.num_steps (or max_steps) -> (model, state).
 
-    ``validate_fn(step, state)``: the standing validation (default: the
-    validators ``make_train_validator`` builds from the stage's datasets).
-
-    ``pretrained``: a baseline model's state dict, transplanted into fnet,
-    cnet and the update block (the recipe's start from a baseline
-    checkpoint), the update block then copied into raft-semi's teacher head;
-    without it the weights are random from cfg.train.seed. ``device``: the
-    card (default; raises if there is none) or ``"cpu"``."""
-    if cfg.model.model_type not in MODEL_TYPES:
-        raise NotImplementedError(
-            f"model_type {cfg.model.model_type!r}: the port trains {MODEL_TYPES}"
-        )
+    Restore or initialize: the latest checkpoint of cfg.ckpt_dir (the model's
+    state dict, the optimizer's state and the step), else
+    cfg.train.pretrained_ckpt's fnet / cnet / update block (the teacher head
+    of raft-semi copied from the update block), else random weights from
+    cfg.train.seed. A checkpoint is saved at every ``val_step`` and after the
+    last step, before that step's validation. ``validate_fn(step, state)``:
+    the standing validation (default: the validators ``make_train_validator``
+    builds from the stage's datasets), run once before the first step of a
+    new run unless ``skip_validation_at_start``. ``device``: the card
+    (default; raises if there is none) or ``"cpu"``."""
+    check_config(cfg)
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("train needs a CUDA device; none is available (pass device='cpu')")
         device = torch.device("cuda")
+    device = torch.device(device)
     model = build_model(cfg, torch.Generator().manual_seed(cfg.train.seed))
-    if pretrained is not None:
-        sd = ckpt.initialize_from_baseline(model.state_dict(), pretrained)
-        model.load_state_dict(ckpt.initialize_teacher_net(sd) if model.cfg.teacher else sd)
+    start_step, opt_state = _restore_or_init(model, cfg)
     model.to(device)
     tx = make_optimizer(cfg.train, batchnorm_params(model) if model.cfg.freeze_bn else ())
     state = TrainState.create(dict(model.named_parameters()), tx)
+    if start_step:
+        if opt_state is None or opt_state.mu.keys() != state.opt_state.mu.keys():
+            raise ValueError(f"the checkpoint of step {start_step} in {cfg.ckpt_dir} holds no "
+                             "optimizer state for this model's trained parameters")
+        state.step, state.opt_state = start_step, ckpt.optimizer_state_to(opt_state, device)
     step_fn = make_step(model, cfg)
     if validate_fn is None:
         validate_fn = make_train_validator(cfg, model)
-    os.makedirs(cfg.ckpt_dir, exist_ok=True)
+    cfg.save_yaml()
     total = cfg.train.num_steps if max_steps is None else max_steps
+    # --trace_dir: trace_steps steps after two warm-up steps
+    trace = _Trace(cfg.train.trace_dir, device) if cfg.train.trace_dir else None
     last, since = time.perf_counter(), 0
     with open(os.path.join(cfg.ckpt_dir, "metrics.jsonl"), "a") as f:
 
@@ -143,9 +221,13 @@ def train(
             f.flush()
             print(f"val {at_step}: " + ", ".join(f"{k}={v:.4f}" for k, v in val.items()))
 
-        if not cfg.train.skip_validation_at_start:
+        if start_step == 0 and not cfg.train.skip_validation_at_start:
             run_validation(0)
-        for step_i in range(total):
+        for step_i in range(start_step, total):
+            if trace is not None and step_i == start_step + 2:
+                trace.start()
+            elif trace is not None and step_i == start_step + 2 + cfg.train.trace_steps:
+                trace.stop()
             batch = next(data_iter)
             batch = (tuple(_to(b, device) for b in batch) if isinstance(batch, (tuple, list))
                      else _to(batch, device))
@@ -160,5 +242,8 @@ def train(
                 f.flush()
                 print(f"step {step_i + 1}: " + ", ".join(f"{k}={v:.4f}" for k, v in row.items()))
             if (step_i + 1) % cfg.train.val_step == 0 or step_i + 1 == total:
+                ckpt.save_checkpoint(cfg.ckpt_dir, step_i + 1, model.state_dict(), state.opt_state)
                 run_validation(step_i + 1)
+        if trace is not None and trace.running:  # the run ended inside the trace window
+            trace.stop()
     return model, state

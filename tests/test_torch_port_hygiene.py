@@ -1,5 +1,6 @@
-"""The port stands alone: it imports no JAX, no flax, no yaml, no cv2 and
-nothing of the JAX package (every module, the data readers and evaluation
+"""The port stands alone: it imports no JAX, no flax, no yaml, no cv2, no
+PIL and nothing of the JAX package (every module, the data readers,
+augmentors, loaders, checkpoints, config, train CLI and evaluation
 included), on CPU tensors its wrappers take the plain PyTorch versions
 without launching (or building) any kernel, and its entry points refuse to
 run without a card unless the caller asks for the CPU."""
@@ -26,7 +27,9 @@ import flow_supervisor_tpu_torch.losses.unsupervised, flow_supervisor_tpu_torch.
 import flow_supervisor_tpu_torch.data.paths, flow_supervisor_tpu_torch.data.io
 import flow_supervisor_tpu_torch.data.datasets, flow_supervisor_tpu_torch.data.pipeline
 import flow_supervisor_tpu_torch.metrics, flow_supervisor_tpu_torch.utils.warm_start
-import flow_supervisor_tpu_torch.submission
+import flow_supervisor_tpu_torch.submission, flow_supervisor_tpu_torch.data.augment
+import flow_supervisor_tpu_torch.data.synthetic, flow_supervisor_tpu_torch.training.checkpoint
+import flow_supervisor_tpu_torch.train
 g = torch.Generator().manual_seed(0)
 model = RAFT(RAFTConfig(iters=2, lookup_backend=BACKEND), generator=g)
 img = torch.rand(BATCH, 32, 48, 3, generator=g)
@@ -46,7 +49,7 @@ _LAUNCHES = """[corr_plane.launches, conv3x3.launches, norm.stats_launches,
     norm.vector_launches]"""
 N_KERNELS = 13  # eleven kernels' counters, the conv's tensor-core body, the norm's vector body
 _LEAKED = """sorted(m for m in sys.modules if m.split(".")[0] in (
-    "jax", "flax", "flow_supervisor_tpu", "cv2", "optax", "orbax", "yaml"))"""
+    "jax", "flax", "flow_supervisor_tpu", "cv2", "optax", "orbax", "yaml", "PIL"))"""
 _CPU_FORWARD = _CPU_FORWARD.replace("LAUNCHES", _LAUNCHES).replace("LEAKED", _LEAKED)
 
 _CPU_STEP = """
@@ -164,8 +167,8 @@ def test_cpu_unsup_baseline_and_smurf_steps_import_no_jax_and_launch_nothing(mod
 
 
 def test_no_source_file_imports_jax():
-    """No file of the port, nor chip_smoke.py, imports jax, flax, yaml, cv2
-    or the JAX package."""
+    """No file of the port, nor chip_smoke.py, imports jax, flax, yaml, cv2,
+    PIL or the JAX package."""
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG):
         paths += [os.path.join(root, n) for n in files if n.endswith((".py", ".cu", ".cuh"))]
@@ -176,10 +179,51 @@ def test_no_source_file_imports_jax():
                 s = line.strip()
                 if s.startswith(("import jax", "from jax", "import flax", "from flax",
                                  "import yaml", "from yaml", "import cv2", "from cv2",
+                                 "import PIL", "from PIL",
                                  "from flow_supervisor_tpu.", "import flow_supervisor_tpu.",
                                  "from flow_supervisor_tpu import")):
                     offenders.append(f"{path}: {s}")
     assert offenders == []
+
+
+_CPU_CLI_STEP = """
+import sys, json
+from flow_supervisor_tpu_torch.data.synthetic import build_synthetic_tree
+build_synthetic_tree(ROOT)
+from flow_supervisor_tpu_torch.kernels import (
+    _build, conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm)
+from flow_supervisor_tpu_torch.train import main
+rc = main([CKPT, "--device", "cpu", "--stage", "semi-sintel_unsup_test-things_unsup",
+           "--model_type", "raft-semi", "--lookup_backend", "fused", "--image_size", "32", "48",
+           "--unsup_image_size", "32", "48", "--full_size", "40", "56", "--iters", "1",
+           "--teacher_iters", "1", "--batch_size", "1", "--num_steps", "1", "--log_every", "1",
+           "--skip_validation_at_start", "true", "--val_iters", "1", "--val_max_records", "1",
+           "--loader_workers", "2"])
+rows = [json.loads(l) for l in open(CKPT + "/metrics.jsonl")]
+print(json.dumps({"rc": rc, "rows": [r["prefix"] for r in rows], "launches": LAUNCHES,
+                  "lib_loaded": _build._lib is not None, "leaked": LEAKED}))
+""".replace("LAUNCHES", _LAUNCHES).replace("LEAKED", _LEAKED)
+
+
+def test_cpu_cli_step_imports_no_jax_and_launches_nothing(tmp_path):
+    """One semi step of ``python -m flow_supervisor_tpu_torch.train --device
+    cpu`` from a synthetic tree (the fused lookup, the threaded loader,
+    a checkpoint, standing validation): no kernel launched or built, nothing
+    of JAX, flax, yaml, cv2 or PIL imported."""
+    import json
+
+    code = (_CPU_CLI_STEP.replace("ROOT", repr(str(tmp_path / "datasets")))
+            .replace("CKPT", repr(str(tmp_path / "run"))))
+    env = dict(os.environ, PYTHONPATH=REPO, FST_DATA_ROOT=str(tmp_path / "datasets"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                          cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["rc"] == 0 and res["rows"] == ["train", "val"]
+    assert res["leaked"] == []
+    assert res["launches"] == [0] * N_KERNELS
+    assert not res["lib_loaded"]
+    assert os.path.exists(tmp_path / "run" / "ckpt_1.pt")
 
 
 def test_extract_flow_requires_a_cuda_device(tmp_path):
@@ -195,10 +239,11 @@ def test_extract_flow_requires_a_cuda_device(tmp_path):
     assert "needs a CUDA device" in proc.stderr
 
 
-@pytest.mark.parametrize("entry", ["profile_forward", "train"])
+@pytest.mark.parametrize("entry", ["profile_forward", "train", "train_cli"])
 def test_entry_points_require_a_cuda_device(entry, tmp_path):
-    """Without a card, profile_forward raises, and train raises unless the
-    caller passes device='cpu'."""
+    """Without a card, profile_forward raises, train raises unless the
+    caller passes device='cpu', and the train CLI exits non-zero unless
+    given --device cpu."""
     import torch
 
     if torch.cuda.is_available():
@@ -206,6 +251,9 @@ def test_entry_points_require_a_cuda_device(entry, tmp_path):
     if entry == "profile_forward":
         code = ("from flow_supervisor_tpu_torch.profile_forward import main; "
                 "main(['--hw', '16', '16', '--iters', '1'])")
+    elif entry == "train_cli":
+        code = ("import sys; from flow_supervisor_tpu_torch.train import main; "
+                f"sys.exit(main([{str(tmp_path)!r}, '--num_steps', '1']))")
     else:
         code = ("from flow_supervisor_tpu_torch.config import ExperimentConfig, ModelCfg; "
                 "from flow_supervisor_tpu_torch.training.loop import train; "

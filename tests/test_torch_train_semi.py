@@ -169,3 +169,31 @@ def test_from_flax_maps_the_teacher_head(steps):
     sd = from_flax(steps["params"], steps["stats"])
     for name, p in steps["before"].items():
         assert torch.equal(sd[name], p), name
+
+
+@pytest.mark.parametrize("weights", [dict(lfr_weight=1.0), dict(lfr_weight=0.0, teacher_smurf_weight=1.0)],
+                         ids=["lfr", "teacher_smurf"])
+def test_semi_step_use_bw_false_divergence(steps, weights):
+    """Pinned divergence. L_fr and the teacher SMURF loss read the backward
+    flows: with ``use_bw=False`` the port's step refuses to be built, where
+    the JAX step builds and then, tracing its unsup branch, reads backward
+    flows that ``semi_forward(use_bw=False)`` did not compute (KeyError).
+    Without either loss the port's step takes ``use_bw=False``."""
+    model = RAFT(RAFTConfig(iters=ITERS, teacher=True, teacher_iters=ITERS, freeze_bn=True,
+                            lookup_backend="fused"), generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="use_bw=True"):
+        make_semi_train_step(model, ModelCfg(**MODEL_KW, use_bw=False, **weights))
+    make_semi_train_step(model, ModelCfg(**MODEL_KW, use_bw=False, lfr_weight=0.0))
+
+    jmodel = JRAFT(JRAFTConfig(iters=ITERS, teacher=True, teacher_iters=ITERS, freeze_bn=True,
+                               lookup_backend="einsum").resolved())
+    jstep = jmake_semi_train_step(jmodel, JModelCfg(**MODEL_KW, use_bw=False, sup_weight=0.0,
+                                                    **weights), donate=False)
+    jstate = JTrainState.create(
+        jax.tree_util.tree_map(jnp.asarray, steps["params"]),
+        jax.tree_util.tree_map(jnp.asarray, steps["stats"]),
+        jmake_optimizer(JTrainCfg(**TRAIN_KW), freeze_bn=True),
+    )
+    sup, unsup = _batches()
+    with pytest.raises(KeyError, match="_bw"):
+        jax.eval_shape(jstep, jstate, sup, unsup)
