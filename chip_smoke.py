@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's RAFT inference path, its evaluation path,
 its three train steps (Baseline, Unsup, flow-supervisor semi with and
-without the teacher SMURF loss), its training-data path through the train
-CLI, and the two kernels that no model path reaches (K5, K11) on one
-NVIDIA GPU.
+without the teacher SMURF loss), its GMA and small models, its
+training-data path through the train CLI, and the two kernels that no model
+path reaches (K5, K11) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -93,7 +93,26 @@ each printing one JSON line per check or configuration:
    K2 launch of a step must run the conv's tensor-core body. Beside K8's and
    K9's times, the share of their (level, tile) pairs that took the tile
    path; every K3 / K4 launch of a step must run the norm's vector body;
-7. train_data: a dataset tree at the recipes' sizes written by the port's
+7. gma_small: the GMA model (the DAVIS recipe's: one head, content
+   similarity) and the small model (4 levels at radius 3, bilinear
+   upsampling), every GMA aggregator's gamma at 0.5 in the checks and
+   forwards (it starts at zero, which leaves the attention out). K6 / K7, K8
+   and K9 at radius 3 against their plain versions (smooth coords on the
+   tile path, uniform ones mostly per query, mixed ones both in one launch;
+   C = 128, the small model's, and 36; fp32 and bf16); card-vs-CPU fp32
+   parity of each model's 216x512, 12-iteration forward under fused and
+   plane (GMA also at 2 heads with the position and content similarity) at
+   phase 2's limits; each model's 448x1024 B=1 bf16 forward under fused and
+   plane with its launch counts (GMA: RAFT's; small: 21 K3 and K4, no K2,
+   12 lookups at radius 3), fwd ms, peak memory, device time, idle share,
+   and GMA's attention map and aggregation in device ms; the GMA recipe's
+   semi step (train.sh:47-53: 368x768 crops of 432x856 frames, 12 + 12
+   iterations) and the small model's chairs Baseline step (B=10, 368x496)
+   through ``training.loop.train`` with their launch counts, and K8 / K9
+   timed at radius 3 on the small step's lookup inputs; the train CLI for
+   gma-semi (stage semi-davis_unsup-ctskh) on a tiny synthetic tree, 2 steps
+   with validation, then a resume to 3;
+8. train_data: a dataset tree at the recipes' sizes written by the port's
    ``data/synthetic.py`` (Sintel 436x1024 training with flows and test,
    clean and final, 3 frames a scene; FlyingThings 540x960 with .pfm flows;
    FlyingChairs 384x512, 10 training pairs and 1 validation pair), then the
@@ -116,7 +135,9 @@ Then it prints K2's and K5's device time per fnet stage shape beside
 ``F.conv2d``'s, a JSON line of the kernels (launches in their configuration's
 main-path run, max error, kernel, plain and library ms per forward (K8/K9:
 per train step; K5: per forward's fnet stage convs; K11: per 12 lookups),
-and the least time the card could take for the same work) and last
+and the least time the card could take for the same work; K1 and K6-K9
+also their launches at radius 3 in phase 7's main-path runs, their largest
+bf16 error there, and K8 / K9 their ms per small Baseline step) and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
 non-zero; so does a machine without a CUDA device. It imports nothing of JAX.
 """
@@ -224,6 +245,52 @@ STEP_LAUNCHES = {
     "baseline": {"conv3x3_stats": 10, "norm_stats": 5, "norm_apply": 15,
                  "corr_fused_level": ITERS * LEVELS, "bwd_df1": ITERS, "bwd_df2": ITERS},
 }
+# phase 8, gma_small: the GMA model (the DAVIS recipe's, train.sh:47-53:
+# gma-semi, one head, the content similarity) and the small model (4 levels at
+# radius 3, bilinear upsampling). Every aggregator's gamma is set to
+# GMA_GAMMA in the parity and forward runs (it starts at zero, which leaves
+# the attention out of the result); the recipe steps start from the random
+# init, as training does. The GMA step: B=1, 368x768 sup and unsup crops of
+# 432x856 frames, 12 + 12 iterations, lfl_loss_decay_rate 0.8; the small
+# model's: the chairs Baseline step (B=10, 368x496).
+SMALL_RADIUS = 3
+GMA_GAMMA = 0.5
+GMA_FULL, GMA_CROP = (432, 856), (368, 768)
+MODEL_KINDS = {"gma": dict(gma=True), "small": dict(small=True)}
+MODEL_RECIPES = {
+    "gma_semi": (dict(RECIPE_MODEL, model_type="gma-semi", lfl_loss_decay_rate=0.8),
+                 dict(RECIPE_TRAIN, stage="semi-davis_unsup-ctskh")),
+    "small_baseline": (dict(STEP_RECIPES["baseline"][0], small=True), STEP_RECIPES["baseline"][1]),
+}
+RECIPE_NAMES.update({"gma_semi": "gma semi davis (train.sh)",
+                     "small_baseline": "small model, baseline chairs (train.sh shapes)"})
+# the small model's fnet: the stem's norm and three in each of the six
+# bottleneck blocks, two downsample norms: 21 instance norms (K3 + K4), no K2
+SMALL_ENCODER_LAUNCHES = {"norm_stats": 21, "norm_apply": 21}
+# the GMA semi step launches what the RAFT one does (the attention and the
+# aggregation are torch.matmul); the small Baseline step (B=10): fnet once,
+# 12 lookups of one K7 per level, K8 / K9 for each
+STEP_LAUNCHES.update({
+    "gma_semi": TRAIN_LAUNCHES,
+    "small_baseline": {**SMALL_ENCODER_LAUNCHES, "corr_fused_level": ITERS * LEVELS,
+                       "bwd_df1": ITERS, "bwd_df2": ITERS},
+})
+# K6-K9 at radius 3 (phase 8): smooth coords (the tile path), uniform ones
+# (check_coords: most tiles per query) and mixed ones (both in one launch),
+# at the small model's C = 128 and the scalar body's C = 36
+R3_K6_K7_CASES = (("smooth", 1, 128), ("uniform", 1, 128), ("mixed", 2, 128), ("smooth", 8, 128),
+                  ("smooth", 1, 36))
+R3_BWD_CASES = (("smooth", 1, 128), ("uniform", 1, 128), ("mixed", 2, 128), ("smooth", 8, 128),
+                ("smooth", 2, 36))
+# the train CLI on a tiny tree (48x64 frames): the GMA recipe's model type
+# and stage at 32x48 crops of 40x56 frames, 12 + 12 iterations, bf16
+GMA_CLI_FLAGS = ["--stage", "semi-davis_unsup-ctskh", "--model_type", "gma-semi",
+                 "--image_size", "32", "48", "--unsup_image_size", "32", "48",
+                 "--full_size", "40", "56", "--iters", "12", "--teacher_iters", "12",
+                 "--batch_size", "1", "--lr", "1e-5", "--lr_schedule", "exponential",
+                 "--lr_decay_steps", "25000", "--weight_decay", "0.0", "--lfr_loss_type", "robust",
+                 "--lfl_loss_decay_rate", "0.8", "--val_step", "2", "--val_max_records", "1",
+                 "--log_every", "1", "--loader_workers", "0"]
 # the train_data phase: a dataset tree at the recipes' sizes (Sintel 436x1024
 # frames, FlyingThings 540x960 with .pfm flows, FlyingChairs 384x512, 10
 # training pairs and 1 validation pair; KITTI, HD1K and DAVIS at 48x64),
@@ -489,17 +556,17 @@ def fmaps(b, h8, w8, dtype, gen, dev):
     return f1, f2
 
 
-def support_taps(coords, shapes) -> int:
+def support_taps(coords, shapes, radius=RADIUS) -> int:
     """Support taps inside the maps, over all queries and the given levels
     ((level, (h2, w2)) pairs): what a lookup at these coords has to read."""
     import torch
 
-    sup = 2 * RADIUS + 2
+    sup = 2 * radius + 2
     total = 0
     for lvl, (h2, w2) in shapes:
         fl = torch.floor(coords.float() * (1.0 / 2.0 ** lvl))
-        bx = torch.clamp(fl[:, 0] - RADIUS, -sup, w2)
-        by = torch.clamp(fl[:, 1] - RADIUS, -sup, h2)
+        bx = torch.clamp(fl[:, 0] - radius, -sup, w2)
+        by = torch.clamp(fl[:, 1] - radius, -sup, h2)
         nx = torch.clamp(torch.clamp(bx + sup, max=w2) - torch.clamp(bx, min=0), min=0)
         ny = torch.clamp(torch.clamp(by + sup, max=h2) - torch.clamp(by, min=0), min=0)
         total += int((nx * ny).sum())
@@ -551,12 +618,13 @@ def smooth_coords(b, h8, w8, gen, dev, sigma=2.0):
 def diverging_queries(b, h8, w8):
     """Six queries a sample, in rows 12 and 24 (of >= 50): moved by (20, 20)
     px their windows stay in the map, 20 px from the rest of their tile, so
-    the tile's level-0 box (>= 37 x 37 taps) exceeds MAX_BOX_TAPS."""
+    the tile's level-0 box (>= 37 x 37 taps at radius 4, 35 x 35 at 3)
+    exceeds MAX_BOX_TAPS."""
     return [bi * h8 * w8 + qy * w8 + qx
             for bi in range(b) for qy in (12, 24) for qx in (10, 40, 60)]
 
 
-def tile_paths(f1, f2s, coords) -> dict:
+def tile_paths(f1, f2s, coords, radius=RADIUS) -> dict:
     """The (level, tile) pairs of K6 / K7 and K9 by path (``lookup_tiles``):
     in all and per level, how many take the shared-memory tile path and how
     many go per query (a tile with no valid query takes neither), the tile
@@ -565,7 +633,7 @@ def tile_paths(f1, f2s, coords) -> dict:
     read or add per query and valid tap (the first K6 / K7 and K9) would."""
     from flow_supervisor_tpu_torch.kernels import corr_fused
 
-    tiles = corr_fused.lookup_tiles(f1, f2s, coords, RADIUS)
+    tiles = corr_fused.lookup_tiles(f1, f2s, coords, radius)
     tile_by = [int(t.tile_path.sum()) for t in tiles]
     per_query_by = [int(((t.queries > 0) & ~t.tile_path).sum()) for t in tiles]
     tile, per_query = sum(tile_by), sum(per_query_by)
@@ -574,12 +642,17 @@ def tile_paths(f1, f2s, coords) -> dict:
             "tile_path_share": tile / max(tile + per_query, 1),
             "box_rows": box_rows,
             "per_query_rows": support_taps(coords, [(lvl, f2.shape[1:3])
-                                                    for lvl, f2 in enumerate(f2s)]),
+                                                    for lvl, f2 in enumerate(f2s)], radius),
             "tile_path_by_level": tile_by, "per_query_by_level": per_query_by,
             "tile_path_share_by_level": [t / max(t + p, 1) for t, p in zip(tile_by, per_query_by)]}
 
 
-def k6_k7_checks(dev, dtype, gen, checks):
+K6_K7_CASES = (("smooth", 1, 256), ("smooth", 2, 256), ("smooth", 8, 256), ("mixed", 1, 256),
+                ("mixed", 2, 256), ("smooth", 1, 36), ("smooth", 2, 36), ("smooth", 1, 320),
+                ("smooth", 2, 320))
+
+
+def k6_k7_checks(dev, dtype, gen, checks, radius=RADIUS, cases=K6_K7_CASES):
     """K6 (B=1) and K7 (B>1) at the main 56x128 shape against their plain
     version, beside the uniform coords of phase 1: smooth coords (the pixel
     grid plus N(0, 2 px)), where every tile takes the tile path, at B = 1, 2
@@ -588,16 +661,19 @@ def k6_k7_checks(dev, dtype, gen, checks):
     goes per query), so both paths run in one launch, at B = 1 and 2; C = 36
     (the CUDA-core body with scalar loads) and C = 320 (two channel chunks),
     smooth, at B = 1 and 2. fp32: sums of C products in another order (rtol
-    1e-5, atol 1e-5); bf16: within one bf16 ulp of the plain fp32 value."""
+    1e-5, atol 1e-5); bf16: within one bf16 ulp of the plain fp32 value.
+    ``cases`` ((coords, B, C) triples) may also name "uniform" coords
+    (``check_coords``: most tiles per query); ``radius`` is the lookup's.
+    Returns each kernel's largest error."""
     import torch
 
     from flow_supervisor_tpu_torch.kernels import corr_fused
 
     rtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     h8, w8 = MAIN_HW[0] // 8, MAIN_HW[1] // 8
-    for name, b, c in (("smooth", 1, 256), ("smooth", 2, 256), ("smooth", 8, 256),
-                       ("mixed", 1, 256), ("mixed", 2, 256), ("smooth", 1, 36), ("smooth", 2, 36),
-                       ("smooth", 1, 320), ("smooth", 2, 320)):
+    k2 = (2 * radius + 1) ** 2
+    errs = {}
+    for name, b, c in cases:
         f1 = torch.randn(b, h8, w8, c, generator=gen).to(dev, dtype)
         f2 = torch.randn(b, h8, w8, c, generator=gen).to(dev, dtype)
         pyr = corr_fused.build_fused_pyramid(f1, f2, LEVELS)
@@ -605,58 +681,72 @@ def k6_k7_checks(dev, dtype, gen, checks):
         if name == "mixed":
             coords[::997] = torch.tensor([1e9, -1e9], device=dev)
             coords[diverging_queries(b, h8, w8)] += torch.tensor([20.0, 20.0], device=dev)
-        paths = tile_paths(pyr.f1, pyr.f2s, coords)
+        if name == "uniform":  # check_coords: most tiles' boxes beyond MAX_BOX_TAPS
+            coords = check_coords(b * h8 * w8, h8, w8, gen, dev)
+        paths = tile_paths(pyr.f1, pyr.f2s, coords, radius)
         kname = "K6" if b == 1 else "K7"
-        if paths["tile_path"] == 0 or (name == "mixed") != (paths["per_query"] > 0):
-            raise AssertionError(f"{kname} {name} B={b} C={c}: unexpected paths {paths}")
+        if paths["tile_path"] == 0 or (name != "smooth") != (paths["per_query"] > 0):
+            raise AssertionError(f"{kname} {name} B={b} C={c} r={radius}: unexpected paths {paths}")
         if b == 1:
-            got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, RADIUS, dtype)
+            got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, radius, dtype)
         else:  # NaN until written: a channel no launch writes fails the check
-            got = torch.full((coords.shape[0], LEVELS * K2), float("nan"), device=dev, dtype=dtype)
+            got = torch.full((coords.shape[0], LEVELS * k2), float("nan"), device=dev, dtype=dtype)
             for lvl, f2l in enumerate(pyr.f2s):
-                corr_fused.corr_fused_level(pyr.f1, f2l, lvl, coords, RADIUS, got, (h8, w8))
-        want = corr_fused.corr_fused_plain(pyr.f1, pyr.f2s, coords, RADIUS, torch.float32)
-        e = check_close(f"{kname} {name} B={b} C={c} {dtype}", got, want, rtol, 1e-5)
-        checks.append({"kernel": "corr_fused_all" if b == 1 else "corr_fused_level",
-                       "coords": name, "batch": b, "shape": [h8, w8], "channels": c,
-                       "dtype": str(dtype), "err": e,
+                corr_fused.corr_fused_level(pyr.f1, f2l, lvl, coords, radius, got, (h8, w8))
+        want = corr_fused.corr_fused_plain(pyr.f1, pyr.f2s, coords, radius, torch.float32)
+        e = check_close(f"{kname} {name} B={b} C={c} r={radius} {dtype}", got, want, rtol, 1e-5)
+        kernel = "corr_fused_all" if b == 1 else "corr_fused_level"
+        errs[kernel] = max(errs.get(kernel, 0.0), e)
+        checks.append({"kernel": kernel, "coords": name, "batch": b, "shape": [h8, w8],
+                       "channels": c, "radius": radius, "dtype": str(dtype), "err": e,
                        "tile_path_by_level": paths["tile_path_by_level"],
                        "per_query_by_level": paths["per_query_by_level"]})
         del f1, f2, pyr, got, want
+    return errs
 
 
-def k9_checks(dev, dtype, gen, checks):
+K9_CASES = (("smooth", 1, 256), ("smooth", 2, 256), ("mixed", 2, 256), ("smooth", 1, 36),
+            ("smooth", 1, 320))
+
+
+def k9_checks(dev, dtype, gen, checks, radius=RADIUS, cases=K9_CASES):
     """K9 on the tile path, against its plain version: smooth coords at the
     supervised crop's 50x90 at B=1 and B=2 (ragged tiles, tiles of both
     samples); a mixed case in which some tiles hold a query far out (it
     leaves the box) or 20 px off (its box exceeds MAX_BOX_TAPS: that tile
     adds per query), so both paths run in one launch; C = 36 (the scalar
-    path) and C = 320 (two channel chunks). Tolerances as in phase 1's K9."""
+    path) and C = 320 (two channel chunks). Tolerances as in phase 1's K9.
+    ``cases`` and ``radius`` as in ``k6_k7_checks``; returns the largest
+    error."""
     import torch
 
     from flow_supervisor_tpu_torch.kernels import corr_fused
 
     rtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
-    for name, b, c in (("smooth", 1, 256), ("smooth", 2, 256), ("mixed", 2, 256),
-                       ("smooth", 1, 36), ("smooth", 1, 320)):
-        pyr, coords, paths, g = bwd_tile_case(name, b, c, dtype, gen, dev)
-        got = corr_fused.bwd_df2(pyr.f1, pyr.f2s, coords, g, RADIUS)
+    err = 0.0
+    for name, b, c in cases:
+        pyr, coords, paths, g = bwd_tile_case(name, b, c, dtype, gen, dev, radius=radius)
+        got = corr_fused.bwd_df2(pyr.f1, pyr.f2s, coords, g, radius)
         want = corr_fused.bwd_df2_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g,
-                                        RADIUS)
-        e = max(check_close(f"K9 {name} B={b} C={c} level {lvl} {dtype}", a, w, rtol, 1e-4)
+                                        radius)
+        e = max(check_close(f"K9 {name} B={b} C={c} r={radius} level {lvl} {dtype}", a, w, rtol,
+                            1e-4)
                 for lvl, (a, w) in enumerate(zip(got, want)))
+        err = max(err, e)
         checks.append({"kernel": "bwd_df2", "coords": name, "batch": b, "shape": [50, 90],
-                       "channels": c, "dtype": str(dtype), "err": e,
+                       "channels": c, "radius": radius, "dtype": str(dtype), "err": e,
                        "tile_path": paths["tile_path"], "per_query": paths["per_query"]})
+    return err
 
 
-def bwd_tile_case(name, b, c, dtype, gen, dev, h8=50, w8=90):
+def bwd_tile_case(name, b, c, dtype, gen, dev, h8=50, w8=90, radius=RADIUS):
     """(fused pyramid, coords, their (level, tile) pairs by path, g) of a K8
     / K9 check at the supervised crop's 50x90: random features of C
     channels, smooth coords, and for name "mixed" some queries far out (they
     leave their tile's box) and some 20 px off (their tile's level-0 box
     exceeds MAX_BOX_TAPS, so it goes per query), so both bodies run in one
-    launch. Raises unless those paths are as the name says."""
+    launch; "uniform" coords (``check_coords``) send most tiles per query.
+    Raises unless those paths are as the name says."""
     import torch
 
     from flow_supervisor_tpu_torch.kernels import corr_fused
@@ -668,14 +758,21 @@ def bwd_tile_case(name, b, c, dtype, gen, dev, h8=50, w8=90):
     if name == "mixed":
         coords[::997] = torch.tensor([1e9, -1e9], device=dev)
         coords[diverging_queries(b, h8, w8)] += torch.tensor([20.0, 20.0], device=dev)
-    paths = tile_paths(pyr.f1, pyr.f2s, coords)
-    if paths["tile_path"] == 0 or (name == "mixed") != (paths["per_query"] > 0):
-        raise AssertionError(f"{name} B={b} C={c}: unexpected paths {paths}")
-    g = torch.randn(b * h8 * w8, LEVELS * K2, generator=gen).to(dev, dtype)
+    elif name == "uniform":
+        coords = check_coords(b * h8 * w8, h8, w8, gen, dev)
+    paths = tile_paths(pyr.f1, pyr.f2s, coords, radius)
+    if paths["tile_path"] == 0 or (name != "smooth") != (paths["per_query"] > 0):
+        raise AssertionError(f"{name} B={b} C={c} r={radius}: unexpected paths {paths}")
+    g = torch.randn(b * h8 * w8, LEVELS * (2 * radius + 1) ** 2, generator=gen).to(dev, dtype)
     return pyr, coords, paths, g
 
 
-def k8_checks(dev, dtype, gen, checks):
+K8_CASES = (("smooth", 1, 256), ("smooth", 2, 256), ("smooth", 8, 256), ("mixed", 1, 256),
+            ("mixed", 8, 256), ("smooth", 1, 36), ("smooth", 2, 36), ("smooth", 1, 320),
+            ("smooth", 8, 320))
+
+
+def k8_checks(dev, dtype, gen, checks, radius=RADIUS, cases=K8_CASES):
     """K8 on the tile path, against its plain version: smooth coords at the
     supervised crop's 50x90 at B=1 and 2 (84 and 168 blocks, fewer than two
     an SM) and B=8 (672); mixed cases in which some tiles hold a query far
@@ -685,28 +782,30 @@ def k8_checks(dev, dtype, gen, checks):
     (a ragged second channel slice). Each case runs twice and the two d_f1
     must be bitwise equal (no atomics, a fixed order of sums). fp32: sums of
     up to 400 products in another order (rtol 1e-5, atol 1e-4); bf16: one
-    bf16 ulp of the plain fp32 value (``check_ulp``), atol 1e-4."""
+    bf16 ulp of the plain fp32 value (``check_ulp``), atol 1e-4. ``cases``
+    and ``radius`` as in ``k6_k7_checks``; returns the largest error."""
     import torch
 
     from flow_supervisor_tpu_torch.kernels import corr_fused
 
-    for name, b, c in (("smooth", 1, 256), ("smooth", 2, 256), ("smooth", 8, 256),
-                       ("mixed", 1, 256), ("mixed", 8, 256), ("smooth", 1, 36), ("smooth", 2, 36),
-                       ("smooth", 1, 320), ("smooth", 8, 320)):
-        pyr, coords, paths, g = bwd_tile_case(name, b, c, dtype, gen, dev)
-        got = corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, RADIUS)
+    err = 0.0
+    for name, b, c in cases:
+        pyr, coords, paths, g = bwd_tile_case(name, b, c, dtype, gen, dev, radius=radius)
+        got = corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, radius)
         want = corr_fused.bwd_df1_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g,
-                                        RADIUS)
-        case = f"K8 {name} B={b} C={c} {dtype}"
+                                        radius)
+        case = f"K8 {name} B={b} C={c} r={radius} {dtype}"
         e = (check_ulp(case, got, want, 1e-4) if dtype == torch.bfloat16
              else check_close(case, got, want, 1e-5, 1e-4))
-        if not torch.equal(corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, RADIUS), got):
-            raise AssertionError(f"K8 {name} B={b} C={c} {dtype}: two launches differ")
+        if not torch.equal(corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, radius), got):
+            raise AssertionError(f"{case}: two launches differ")
+        err = max(err, e)
         checks.append({"kernel": "bwd_df1", "coords": name, "batch": b, "shape": [50, 90],
-                       "channels": c, "dtype": str(dtype), "err": e,
+                       "channels": c, "radius": radius, "dtype": str(dtype), "err": e,
                        "bit_identical": True, "tile_path_by_level": paths["tile_path_by_level"],
                        "per_query_by_level": paths["per_query_by_level"]})
         del pyr, got, want
+    return err
 
 
 def phase_kernels(dev):
@@ -1785,7 +1884,7 @@ def bwd_lookup_inputs(model, batch, forward: str = "semi"):
     return pyr, coords.reshape(-1, 2).float().contiguous()
 
 
-def train_bwd_timing(model, shapes, dev):
+def train_bwd_timing(model, shapes, dev, radius=RADIUS):
     """K8 / K9 against their plain versions on the inputs of a step's last
     student lookups (``bwd_lookup_inputs``) at each of `shapes`, (name, batch,
     forward, calls per step): ms per step (per-call device time x calls), the
@@ -1801,9 +1900,10 @@ def train_bwd_timing(model, shapes, dev):
     for name, batch, forward, calls in shapes:
         pyr, coords = bwd_lookup_inputs(model, batch, forward)
         f1, f2s = pyr.f1, pyr.f2s
-        g = torch.randn(coords.shape[0], LEVELS * K2, generator=gen).to(dev, f1.dtype)
+        g = torch.randn(coords.shape[0], LEVELS * (2 * radius + 1) ** 2,
+                        generator=gen).to(dev, f1.dtype)
         levels = [(lvl, tuple(f2.shape[1:3])) for lvl, f2 in enumerate(f2s)]
-        ops = 2 * f1.shape[2] * support_taps(coords, levels)
+        ops = 2 * f1.shape[2] * support_taps(coords, levels, radius)
         common = g.numel() * g.element_size() + coords.numel() * 4
         f2_bytes = sum(f2.numel() * f2.element_size() for f2 in f2s)
         f1_bytes = f1.numel() * f1.element_size()
@@ -1813,8 +1913,8 @@ def train_bwd_timing(model, shapes, dev):
             # K9 reads g, coords and f1, writes d_f2 in f2's dtype
             ("bwd_df2", corr_fused.bwd_df2, corr_fused.bwd_df2_plain, common + f1_bytes + f2_bytes),
         ):
-            k, p = ab_ms(lambda: kernel(f1, f2s, coords, g, RADIUS),
-                         lambda: plain(f1, f2s, coords, g, RADIUS))
+            k, p = ab_ms(lambda: kernel(f1, f2s, coords, g, radius),
+                         lambda: plain(f1, f2s, coords, g, radius))
             tb, to = bound(nbytes, ops, f1.dtype)
             t = times[kname]
             t["ms"] += calls * k
@@ -1826,7 +1926,7 @@ def train_bwd_timing(model, shapes, dev):
                                    "calls_per_step": calls, "ms": k, "plain_ms": p,
                                    "bound_ms": max(tb, to), "bound_share": max(tb, to) / k,
                                    "bytes": nbytes, "ops": ops}
-            t["per_call"][name].update(tile_paths(f1, f2s, coords))
+            t["per_call"][name].update(tile_paths(f1, f2s, coords, radius))
         del pyr
     for t in times.values():
         t["bound_by"] = "bytes" if t.pop("t_bytes") >= t.pop("t_ops") else "operations"
@@ -1847,7 +1947,7 @@ def train_main(dev, kind: str, batches, **shapes):
     from flow_supervisor_tpu_torch.profile_forward import profile
     from flow_supervisor_tpu_torch.training.loop import make_step, train
 
-    model_kw, train_kw = STEP_RECIPES[kind]
+    model_kw, train_kw = {**STEP_RECIPES, **MODEL_RECIPES}[kind]
     # an empty dataset root: no standing validation set, so ``train`` runs
     # the steps alone whatever the working directory holds
     with tempfile.TemporaryDirectory() as tmp, data_root(os.path.join(tmp, "no_datasets")):
@@ -2158,6 +2258,187 @@ def phase_train_data(dev, in_memory: dict):
               "profiled_steps": COMPOSED_PROFILED})
 
 
+def set_gamma(model, value: float = GMA_GAMMA) -> None:
+    """Every GMA aggregator's gamma (the student's and the teacher's) to value."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("aggregator.gamma"):
+                p.fill_(value)
+
+
+def model_forward(dev, kind: str, backend: str, gen):
+    """One 448x1024 B=1 bf16 forward of kind ("gma" or "small") under
+    backend with the launch counters reset, which must launch each kernel the
+    expected number of times (GMA: RAFT's encoder kernels and 12 lookups;
+    small: 21 K3 + K4 and 12 lookups at radius 3, no K2), on the tensor-core
+    and vector bodies; then fwd ms over back-to-back forwards, peak memory,
+    device time and idle share of one forward, and for GMA the device ms of
+    the attention map (once a forward) and of one aggregation (12 a
+    forward). Returns (launch counts, the result line)."""
+    import torch
+
+    from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
+    from flow_supervisor_tpu_torch.profile_forward import profile
+
+    bf16 = torch.bfloat16
+    model = RAFT(RAFTConfig(iters=ITERS, dtype=bf16, corr_dtype=bf16, lookup_backend=backend,
+                            **MODEL_KINDS[kind]), generator=gen).to(dev)
+    set_gamma(model)
+    img1, img2 = (t.to(dev) for t in synthetic_pair(1, *MAIN_HW, gen))
+
+    def forward():
+        return model(img1, img2, final_flow_only=True)
+
+    forward()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = forward()
+    torch.cuda.synchronize()
+    got = launch_counts()
+    want = {k: 0 for k in SOURCES}
+    want.update(SMALL_ENCODER_LAUNCHES if kind == "small" else ENCODER_LAUNCHES)
+    want[LOOKUP_KERNEL[(backend, 1)]] = ITERS
+    flow = out["flow_up"]
+    where = f"gma_small {kind} {backend} B=1"
+    if tuple(flow.shape) != (1, 1, *MAIN_HW, 2) or not torch.isfinite(flow).all():
+        raise AssertionError(f"{where}: output bad, shape {tuple(flow.shape)}")
+    if got != want:
+        raise AssertionError(f"{where}: launch counts {got} != expected {want}")
+    tc = check_tc_launches(where, want["conv3x3_stats"])
+    check_vector_launches(where, want["norm_stats"] + want["norm_apply"])
+    del out, flow
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms = time_ms(forward, reps=10, warm=2)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile(forward, n=1)
+    res = {"phase": "gma_small", "ok": True, "model": kind, "lookup_backend": backend, "batch": 1,
+           "hw": list(MAIN_HW), "iters": ITERS, "dtype": "bfloat16",
+           "radius": model.cfg.corr_radius, "launches": got, "conv_tensor_core_launches": tc,
+           "fwd_ms": fwd_ms, "pairs_per_s": 1000.0 / fwd_ms, "peak_mem_bytes": peak,
+           "device_ms_per_forward": prof.get("device_ms_per_forward"),
+           "device_idle_share": prof.get("device_idle_share"),
+           "launches_per_forward_all": prof.get("launches_per_forward"),
+           "by_category_ms_per_forward": prof.get("by_category_ms_per_forward")}
+    if kind == "gma":
+        with torch.no_grad():
+            _, inp = model.context(img1)
+            attn = model.attention_map(inp)
+            h8, w8 = MAIN_HW[0] // 8, MAIN_HW[1] // 8
+            motion = torch.randn(1, 128, h8, w8, generator=gen).to(dev, bf16).contiguous(
+                memory_format=torch.channels_last)
+            att_ms = time_ms(lambda: model.attention_map(inp), reps=10, device_only=True)
+            agg_ms = time_ms(lambda: model.update_block.aggregator(attn, motion), reps=10,
+                             device_only=True)
+        res.update(attention_map_shape=list(attn.shape), attention_ms=att_ms,
+                   aggregation_ms_per_call=agg_ms, aggregation_ms_per_forward=ITERS * agg_ms)
+    del model, img1, img2
+    torch.cuda.empty_cache()
+    return got, res
+
+
+def phase_gma_small(dev):
+    """The GMA and small models on the card: K6-K9 at radius 3 against their
+    plain versions (tile and per-query paths, fp32 and bf16); card-vs-CPU
+    fp32 parity of each model's 216x512, 12-iteration forward under fused
+    and plane (GMA also at 2 heads with the position and content similarity,
+    fused); each model's 448x1024 B=1 bf16 forward under fused and plane
+    (``model_forward``); the GMA DAVIS recipe's semi step and the small
+    model's chairs Baseline step through ``training.loop.train``
+    (``train_main``), with K8 / K9 timed at radius 3 on the small step's
+    lookup inputs; the train CLI for gma-semi on a tiny synthetic tree, 2
+    steps, then a resume to 3. Returns (launches, times, errs) for the
+    kernel line: the launches at radius 3 by kernel, their K8 / K9 times,
+    and the largest bf16 error of each of K6-K9 at radius 3."""
+    import torch
+
+    from flow_supervisor_tpu_torch.data.synthetic import build_synthetic_tree
+    from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
+    from flow_supervisor_tpu_torch.training import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(9)
+    checks, errs = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        e = k6_k7_checks(dev, dtype, gen, checks, SMALL_RADIUS, R3_K6_K7_CASES)
+        e["bwd_df1"] = k8_checks(dev, dtype, gen, checks, SMALL_RADIUS, R3_BWD_CASES)
+        e["bwd_df2"] = k9_checks(dev, dtype, gen, checks, SMALL_RADIUS, R3_BWD_CASES)
+        if dtype == torch.bfloat16:
+            errs = e
+    torch.cuda.synchronize()
+    emit({"phase": "gma_small", "ok": True, "radius": SMALL_RADIUS, "kernel_checks": checks})
+
+    img1, img2 = synthetic_pair(1, 216, 512, gen)
+    for name, kw, backends in (("gma", MODEL_KINDS["gma"], ("fused", "plane")),
+                               ("gma_2heads_position_and_content",
+                                dict(gma=True, num_heads=2, position_and_content=True), ("fused",)),
+                               ("small", MODEL_KINDS["small"], ("fused", "plane"))):
+        base = RAFT(RAFTConfig(iters=ITERS, **kw), generator=gen)
+        set_gamma(base)
+        for backend in backends:
+            model = RAFT(RAFTConfig(iters=ITERS, lookup_backend=backend, **kw))
+            model.load_state_dict(base.state_dict())
+            cpu = model(img1, img2, final_flow_only=True)["flow_up"][-1]
+            model.to(dev)
+            gpu = model(img1.to(dev), img2.to(dev), final_flow_only=True)["flow_up"][-1].cpu()
+            d = (gpu - cpu).abs()
+            res = {"phase": "gma_small", "parity": name, "lookup_backend": backend,
+                   "hw": [216, 512], "iters": ITERS, "dtype": "float32",
+                   "radius": model.cfg.corr_radius, "mean_abs_diff_px": float(d.mean()),
+                   "max_abs_diff_px": float(d.max()), "max_abs_flow_px": float(cpu.abs().max())}
+            res["ok"] = bool(torch.isfinite(gpu).all() and res["mean_abs_diff_px"] < 1e-3
+                             and res["max_abs_diff_px"] < 2e-2)
+            emit(res)
+            if not res["ok"]:
+                raise AssertionError(f"gma_small parity failed: {res}")
+            del model
+
+    launches = {}
+    for kind in MODEL_KINDS:
+        for backend in ("fused", "plane"):
+            got, res = model_forward(dev, kind, backend, gen)
+            launches[(kind, backend)] = got
+            emit(res)
+
+    gma_batches = [recipe_batches(GMA_CROP, GMA_CROP, GMA_FULL, gen, (16, 40), (56, 80)),
+                   recipe_batches(GMA_CROP, GMA_CROP, GMA_FULL, gen, (64, 88), (0, 8))]
+    got, model, _, res = train_main(dev, "gma_semi", gma_batches, batch=1, sup_hw=GMA_CROP,
+                                    unsup_hw=GMA_CROP, full_hw=GMA_FULL, teacher_iters=ITERS)
+    emit(res)
+    del model
+    torch.cuda.empty_cache()
+    chairs = [labeled_batch(CHAIRS_BATCH, CHAIRS_HW, gen) for _ in range(2)]
+    got, model, dev_batches, res = train_main(dev, "small_baseline", chairs,
+                                              batch=CHAIRS_BATCH, hw=CHAIRS_HW)
+    launches["small_baseline"] = got
+    times = train_bwd_timing(model, [("chairs", dev_batches[0], "baseline", ITERS)], dev,
+                             radius=SMALL_RADIUS)
+    res.update(radius=model.cfg.corr_radius, bwd_kernels=times)
+    emit(res)
+    del model, dev_batches
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "datasets")
+        build_synthetic_tree(root)
+        run = os.path.join(tmp, "gma")
+        with data_root(root):
+            cli = cli_run("gma_small cli", [run] + GMA_CLI_FLAGS + ["--num_steps", "2"],
+                          TRAIN_LAUNCHES, [1, 2], [0, 2], [2])
+            if "att.to_qk.weight" not in ckpt.restore_checkpoint(run, map_location="cpu")["model"]:
+                raise AssertionError("gma_small cli: the checkpoint holds no GMA attention")
+            resume = cli_run("gma_small cli resume", [run, "--num_steps", "3"], TRAIN_LAUNCHES,
+                             [3], [3], [2, 3])
+        emit({"phase": "gma_small", "ok": True, "cli": "gma-semi semi-davis_unsup-ctskh",
+              "run": cli, "resume": resume})
+    emit({"phase": "gma_small", "ok": True, "seconds": time.perf_counter() - t0})
+    r3 = {"corr_plane": launches[("small", "plane")]["corr_plane"],
+          "corr_fused_all": launches[("small", "fused")]["corr_fused_all"],
+          **{k: launches["small_baseline"][k] for k in ("corr_fused_level", "bwd_df1", "bwd_df2")}}
+    return r3, times, errs
+
+
 def main() -> int:
     import torch
 
@@ -2188,6 +2469,7 @@ def main() -> int:
     phase_evaluate(dev)
     phase_train_parity(dev)
     launches[("train", 1)], times[("train", 1)], semi_res = phase_train_main(dev)
+    r3_launches, r3_times, r3_errs = phase_gma_small(dev)
     phase_train_data(dev, semi_res)
 
     kernels = []
@@ -2202,12 +2484,24 @@ def main() -> int:
                       else "corr_pyramid_lookup_pallas", "hw": list(MAIN_HW)}
         else:
             config = {"lookup_backend": home[0], "batch": home[1]}
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[home][name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "config": config,
-        })
+        }
+        # radius 3, the small model's: launches in its main-path runs (K1 / K6
+        # its B=1 forwards, K7-K9 its chairs Baseline step, two steps), the
+        # largest bf16 error of phase 8's checks, K8 / K9's ms per step
+        if name in r3_launches:
+            entry["launches_radius_3"] = r3_launches[name]
+        if name in r3_errs:
+            entry["max_abs_err_radius_3"] = r3_errs[name]
+        if name in r3_times:
+            entry["ms_radius_3"] = r3_times[name]["ms"]
+            entry["plain_ms_radius_3"] = r3_times[name]["plain_ms"]
+            entry["bound_ms_radius_3"] = r3_times[name]["bound_ms"]
+        kernels.append(entry)
     # K2 and K5 per fnet stage shape beside F.conv2d (bf16, device ms per call)
     emit({"conv_per_shape": [
         {"shape": shape, "cout": cout, "calls_per_forward": n, "conv3x3_stats_ms": k2[1],

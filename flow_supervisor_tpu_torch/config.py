@@ -14,9 +14,9 @@ directory works with either package.
 Fields no code of the port reads, kept so the flags and ``args.yaml`` are
 the JAX package's: ``stop_teacher_gradient``, ``teacher_smurf_loss`` and
 ``min_lr`` (read by no code in either package), ``scan_iters`` (a compile
-option of the JAX forward; the port is eager), and ``num_heads``,
-``position_only``, ``position_and_content`` (GMA, not ported:
-``training.loop.build_model`` refuses gma model types).
+option of the JAX forward; the port is eager), and ``corr_levels``,
+``corr_radius`` (``training.loop.build_model`` fixes them as the JAX
+package's does: 4 levels at radius 4, or at radius 3 for the small model).
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ CONFIG_FILENAME = "args.yaml"
 
 @dataclasses.dataclass
 class ModelCfg:
-    model_type: str = "raft-baseline"  # raft-baseline | raft-unsup | raft-semi | gma-*
+    model_type: str = "raft-baseline"  # {raft,gma}-{baseline,unsup,semi}
     small: bool = False
     iters: int = 12
     dropout: float = 0.0

@@ -97,13 +97,15 @@ class Evaluator:
         b, h, w, _ = x1.shape
         pyramid = m.build_corr(*m.features(x1, x2))
         net, inp = m.context(x1)
+        attention = m.attention_map(inp)  # GMA: one map for the student and the teacher
         coords0 = coords_grid(b, downsample_shape(h), downsample_shape(w), device=x1.device)
         coords1 = coords0 if flow_init is None else coords0 + flow_init
         net, _, stu_up, stu_low = m.iterate(
-            net, inp, pyramid, coords0, coords1, (h, w), self.iters, final_flow_only=True)
+            net, inp, pyramid, coords0, coords1, (h, w), self.iters, final_flow_only=True,
+            attention=attention)
         _, _, tea_up, _ = m.teacher_iterate(
             net, inp, pyramid, coords0, coords0 + stu_low[-1], (h, w), m.cfg.teacher_iters,
-            final_flow_only=True)
+            final_flow_only=True, attention=attention)
         return stu_up[-1], tea_up[-1], stu_low[-1]
 
     @torch.no_grad()

@@ -1,0 +1,154 @@
+"""GMA, Global Motion Aggregation (counterpart of flow_supervisor_tpu/models/gma.py).
+
+- ``RelPosEmb``: tables of 2 * max_pos_size - 1 rows of dim_head, gathered at
+  i - j + max_pos_size - 1 for the rows and the columns; the score of query
+  (x, y) and key (u, v) is q . height[x - u] + q . width[y - v].
+- ``Attention``: 1x1 conv (no bias) -> q, k in ``heads`` heads of dim_head;
+  q scaled by dim_head^-0.5; the similarity is the content term q . k
+  (default), the position term alone (``position_only``) or their sum
+  (``position_and_content``); softmax over the source pixels in fp32, the
+  map cast to the compute dtype (JAX's stays fp32 in bf16 with a position
+  term, which its fp32 tables promote). Beyond the tables (h or w >
+  max_pos_size) the port raises where JAX's gather clamps.
+- ``Aggregate``: 1x1 conv (no bias) -> v; the attention-weighted sum of v; a
+  1x1 projection (no bias) where heads * dim_head != dim; the residual
+  scaled by ``gamma``, a scalar that starts at zero.
+- ``GMAUpdateBlock``: the GRU input is context 128 + motion 128 + the motion
+  aggregated over the frame 128.
+
+The attention map is computed once per forward from the relu'd context and
+serves every refinement iteration. Its two products, q . k^T once and attn .
+v in every iteration, are ``torch.matmul`` on [B, heads, N, d] (N = h8 * w8):
+one map weighs twelve different v's, so no fused attention call fits.
+
+Module names follow the reference torch GMA (``att.to_qk``,
+``att.pos_emb.rel_height``, ``update_block.aggregator.to_v``, ...). The
+reference keeps its index table as a buffer (``rel_ind``); here the indices
+are computed at each call, as in the JAX package, so the state dict holds
+the two tables alone.
+
+Activations are NCHW in ``torch.channels_last`` memory format.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from flow_supervisor_tpu_torch.models.layers import Conv2d, nchw, nhwc
+from flow_supervisor_tpu_torch.models.update import (
+    BasicMotionEncoder,
+    FlowHead,
+    SepConvGRU,
+    mask_head,
+)
+
+
+def _conv1x1(c_in: int, c_out: int) -> Conv2d:
+    """A bias-free 1x1 conv; torch's default init draws U(+-1/sqrt(c_in)),
+    the JAX package's VarianceScaling(1/3, fan_in, uniform)."""
+    return Conv2d(c_in, c_out, 1, bias=False)
+
+
+class RelPosEmb(nn.Module):
+    def __init__(self, max_pos_size: int = 160, dim_head: int = 128):
+        super().__init__()
+        self.max_pos_size = max_pos_size
+        self.rel_height = nn.Embedding(2 * max_pos_size - 1, dim_head)
+        self.rel_width = nn.Embedding(2 * max_pos_size - 1, dim_head)
+
+    def _table(self, emb: nn.Embedding, n: int, dtype) -> torch.Tensor:
+        """emb's rows at i - j + max_pos_size - 1 -> [n, n, dim_head]."""
+        i = torch.arange(n, device=emb.weight.device)
+        return emb.weight.to(dtype)[i[:, None] - i[None, :] + self.max_pos_size - 1]
+
+    def forward(self, q: torch.Tensor) -> torch.Tensor:
+        """q [B, heads, h, w, d] -> scores [B, heads, h, w, h, w]."""
+        h, w = q.shape[2], q.shape[3]
+        if max(h, w) > self.max_pos_size:
+            # JAX's gather clamps the out-of-range indices; the port refuses them
+            raise ValueError(
+                f"RelPosEmb: a {h}x{w} feature map exceeds max_pos_size {self.max_pos_size} "
+                "(the position tables cover offsets below it)"
+            )
+        height = torch.einsum("bnxyd,xud->bnxyu", q, self._table(self.rel_height, h, q.dtype))
+        width = torch.einsum("bnxyd,yvd->bnxyv", q, self._table(self.rel_width, w, q.dtype))
+        return height[..., :, None] + width[..., None, :]
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int = 128, heads: int = 1, dim_head: int = 128,
+                 max_pos_size: int = 160, position_only: bool = False,
+                 position_and_content: bool = False):
+        super().__init__()
+        if heads < 1:
+            raise ValueError(f"Attention(heads={heads}): at least one head")
+        self.heads, self.dim_head = heads, dim_head
+        self.position_only = position_only
+        self.position_and_content = position_and_content
+        self.to_qk = _conv1x1(dim, 2 * heads * dim_head)
+        if position_only or position_and_content:  # tables N(0, 1), as flax's
+            self.pos_emb = RelPosEmb(max_pos_size, dim_head)
+
+    def forward(self, fmap: torch.Tensor) -> torch.Tensor:
+        """fmap NCHW [B, dim, h, w] -> the attention map [B, heads, N, N] in
+        fmap's dtype, rows (queries) summing to 1 over the source pixels."""
+        b, _, h, w = fmap.shape
+        inner = self.heads * self.dim_head
+        qk = nhwc(self.to_qk(fmap))  # [B, h, w, 2 * inner]
+
+        def heads(t):  # [B, h, w, inner] -> [B, heads, h, w, d]
+            return t.reshape(b, h, w, self.heads, self.dim_head).permute(0, 3, 1, 2, 4)
+
+        q = heads(qk[..., :inner]) * (self.dim_head ** -0.5)
+        k = heads(qk[..., inner:])
+        n = h * w
+        if self.position_only:
+            sim = self.pos_emb(q).reshape(b, self.heads, n, n)
+        else:
+            sim = torch.matmul(q.reshape(b, self.heads, n, self.dim_head),
+                               k.reshape(b, self.heads, n, self.dim_head).transpose(-1, -2))
+            if self.position_and_content:
+                sim = sim + self.pos_emb(q).reshape(b, self.heads, n, n)
+        return torch.softmax(sim.float(), dim=-1).to(fmap.dtype)
+
+
+class Aggregate(nn.Module):
+    def __init__(self, dim: int = 128, heads: int = 1, dim_head: int = 128):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        inner = heads * dim_head
+        self.to_v = _conv1x1(dim, inner)
+        self.project = _conv1x1(inner, dim) if inner != dim else None
+        self.gamma = nn.Parameter(torch.zeros(1))
+
+    def forward(self, attn: torch.Tensor, fmap: torch.Tensor) -> torch.Tensor:
+        """attn [B, heads, N, N], fmap NCHW [B, dim, h, w] -> fmap + gamma *
+        (the attention-weighted v, projected to dim), NCHW in fmap's dtype."""
+        b, _, h, w = fmap.shape
+        inner = self.heads * self.dim_head
+        v = nhwc(self.to_v(fmap)).reshape(b, h * w, self.heads, self.dim_head)
+        out = torch.matmul(attn, v.transpose(1, 2))  # [B, heads, N, d]
+        out = nchw(out.transpose(1, 2).reshape(b, h, w, inner))
+        if self.project is not None:
+            out = self.project(out)
+        return (fmap + self.gamma * out).to(fmap.dtype)
+
+
+class GMAUpdateBlock(nn.Module):
+    def __init__(self, hidden_dim: int = 128, corr_levels: int = 4, corr_radius: int = 4,
+                 heads: int = 1, convex_upsampling: bool = True):
+        super().__init__()
+        self.encoder = BasicMotionEncoder(corr_levels, corr_radius)
+        self.gru = SepConvGRU(hidden_dim, 128 + hidden_dim + hidden_dim)
+        self.flow_head = FlowHead(hidden_dim, 256)
+        self.mask = mask_head() if convex_upsampling else None
+        self.aggregator = Aggregate(128, heads, 128)
+
+    def forward(self, net, inp, corr, flow, attention):
+        """-> (net, convex-upsampling mask logits or None, delta_flow), all
+        NCHW; ``attention``: the forward's map from ``Attention``."""
+        motion = self.encoder(flow, corr)
+        motion_global = self.aggregator(attention, motion)
+        net = self.gru(net, torch.cat([inp, motion, motion_global], dim=1))
+        delta_flow = self.flow_head(net)
+        return net, None if self.mask is None else 0.25 * self.mask(net), delta_flow

@@ -14,7 +14,10 @@ BatchNorm (``BatchNorm2d`` below: eps 1e-5, momentum 0.99; running
 statistics in eval mode, and in training too when the model freezes its
 batch norm): with fp32 parameters (training's masters) and a bf16 input it
 computes in fp32 and returns bf16, as flax's BatchNorm (param_dtype fp32)
-does; ``none`` is the identity.
+does; ``group`` is flax's GroupNorm (eps 1e-5, fp32 statistics and
+parameters, the result in the input's dtype; no model path reaches it, the
+small model's encoders take instance norm and none); ``none`` is the
+identity.
 
 Every conv casts its weight and bias to its input's dtype (the compute
 dtype) at each call: a no-op where the model holds its parameters in that
@@ -44,7 +47,8 @@ class Conv2d(nn.Conv2d):
     the gradient of each use comes back to an fp32 master in fp32."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 def conv2d(c_in: int, c_out: int, k, stride: int = 1) -> Conv2d:
@@ -67,7 +71,8 @@ def init_conv_(conv: nn.Conv2d, kind: str, generator: torch.Generator | None = N
         nn.init.trunc_normal_(conv.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
     else:
         nn.init.uniform_(conv.weight, -limit, limit, generator=generator)
-    nn.init.uniform_(conv.bias, -limit, limit, generator=generator)
+    if conv.bias is not None:
+        nn.init.uniform_(conv.bias, -limit, limit, generator=generator)
 
 
 def init_weights_(
@@ -125,12 +130,30 @@ class BatchNorm2d(nn.BatchNorm2d):
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
-def make_norm(kind: str, channels: int) -> nn.Module:
-    """The reference's norm_fn choices for the slice: instance / batch / none."""
+class GroupNorm(nn.GroupNorm):
+    """flax's GroupNorm: statistics per (sample, group) over its channels and
+    the spatial axes, eps 1e-5, computed in fp32 with fp32 parameters, the
+    result cast back to the input's dtype."""
+
+    def __init__(self, num_groups: int, channels: int):
+        super().__init__(num_groups, channels, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.num_groups, self.weight.float(), self.bias.float(),
+                         self.eps)
+        return y.to(x.dtype)
+
+
+def make_norm(kind: str, channels: int, num_groups: int | None = None) -> nn.Module:
+    """The reference's norm_fn choices: instance / batch / group / none.
+    ``num_groups`` (group only) defaults to channels // 8, the residual and
+    bottleneck blocks' rule (the encoders' stems take 8)."""
     if kind == "instance":
         return InstanceNorm()
     if kind == "batch":
         return BatchNorm2d(channels)
+    if kind == "group":
+        return GroupNorm(channels // 8 if num_groups is None else num_groups, channels)
     if kind == "none":
         return nn.Identity()
     raise ValueError(f"norm_fn {kind} not implemented in the port")

@@ -6,6 +6,21 @@ inp = relu); then ``iters`` refinement steps of {pyramid lookup -> update
 block -> delta flow}, with coords updated in fp32; the final flow is
 convex-upsampled x8.
 
+Three model families, as in the JAX package's ``RAFT.setup``:
+
+- RAFT (default): ``BasicEncoder``s (fnet instance norm, cnet batch norm),
+  ``BasicUpdateBlock``, hidden and context 128;
+- GMA (``gma=True``): the same encoders, ``Attention`` over cnet's relu'd
+  context once per forward (``attention_map``; heads and the three
+  similarity modes from the config) and ``GMAUpdateBlock``, whose
+  ``Aggregate`` reads that map in every iteration (models/gma.py);
+- small (``small=True``, which wins over ``gma`` as in JAX):
+  ``SmallEncoder``s (fnet instance norm, output 128; cnet no norm, output
+  160), ``SmallUpdateBlock``, hidden 96 and context 64, 4 levels at radius 3
+  and no mask head, so every flow is upsampled bilinearly x8 with its
+  vectors scaled (``convex_upsampling=False`` gives the other two families
+  the same upsampling).
+
 ``RAFTConfig.lookup_backend`` picks the pyramid and its lookup, as in the JAX
 package (channels dx-major in every backend):
 
@@ -63,9 +78,10 @@ from flow_supervisor_tpu_torch.kernels.corr_plane import (
     build_plane_pyramid,
     corr_pyramid_lookup_plane,
 )
-from flow_supervisor_tpu_torch.models.encoders import BasicEncoder
+from flow_supervisor_tpu_torch.models.encoders import BasicEncoder, SmallEncoder
+from flow_supervisor_tpu_torch.models.gma import Attention, GMAUpdateBlock
 from flow_supervisor_tpu_torch.models.layers import init_weights_, nchw, nhwc
-from flow_supervisor_tpu_torch.models.update import BasicUpdateBlock
+from flow_supervisor_tpu_torch.models.update import BasicUpdateBlock, SmallUpdateBlock
 from flow_supervisor_tpu_torch.ops.coords import coords_grid, downsample_shape, resize_flow
 from flow_supervisor_tpu_torch.ops.corr import build_corr_pyramid_from_fmaps, corr_pyramid_lookup
 from flow_supervisor_tpu_torch.ops.pad import crop_bboxes, pad_bboxes
@@ -86,7 +102,7 @@ def _crop_upsample(flow_low, mask, crop_yx8, hw8, out_size):
 
 @dataclasses.dataclass(frozen=True)
 class RAFTConfig:
-    """The fields of the JAX RAFTConfig that the ported slice uses."""
+    """The fields of the JAX RAFTConfig that the port uses."""
 
     iters: int = 12
     corr_levels: int = 4
@@ -94,23 +110,35 @@ class RAFTConfig:
     dtype: torch.dtype = torch.float32  # compute dtype (bfloat16 for speed)
     corr_dtype: torch.dtype = torch.float32  # correlation plane storage dtype
     lookup_backend: str = "plane"  # one of LOOKUP_BACKENDS (module docstring)
-    convex_upsampling: bool = True  # False (bilinear) comes with the small model
-    small: bool = False
-    gma: bool = False
+    convex_upsampling: bool = True  # False: bilinear x8 (the small model's)
+    small: bool = False  # SmallEncoder / SmallUpdateBlock, radius 3, bilinear upsampling
+    gma: bool = False  # GMA: the attention map and GMAUpdateBlock (ignored when small)
+    num_heads: int = 1  # GMA's attention heads
+    position_only: bool = False  # GMA: the relative-position term alone
+    position_and_content: bool = False  # GMA: the content term plus the position term
     teacher: bool = False  # add the flow-supervisor teacher update block
     teacher_iters: int = 12
     freeze_bn: bool = False  # batch norm on running statistics in training too
 
-    hidden_dim = 128
-    context_dim = 128
+    @property
+    def hidden_dim(self) -> int:
+        return 96 if self.small else 128
+
+    @property
+    def context_dim(self) -> int:
+        return 64 if self.small else 128
+
+    def resolved(self) -> "RAFTConfig":
+        """The correlation levels and radius (and the small model's bilinear
+        upsampling) as JAX's ``RAFTConfig.resolved`` fixes them, whatever
+        the fields hold: 4 levels, radius 4, or radius 3 for the small model.
+        The lookup backend stays as it is (``resolve_lookup_backend``)."""
+        if self.small:
+            return dataclasses.replace(self, corr_levels=4, corr_radius=3,
+                                       convex_upsampling=False)
+        return dataclasses.replace(self, corr_levels=4, corr_radius=4)
 
 
-_NOT_PORTED = {
-    "small": "the small model (ROADMAP Queue 1, item 8: SmallEncoder / SmallUpdateBlock)",
-    "gma": "GMA (ROADMAP Queue 1, item 7)",
-}
-# bilinear (non-convex) upsampling comes with the small model, which needs it
-_NOT_PORTED_OFF = {"convex_upsampling": _NOT_PORTED["small"]}
 LOOKUP_BACKENDS = ("plane", "fused", "pallas", "einsum", "zero", "auto")
 # the backends without a backward: their kernels' backward passes are not ported
 _INFERENCE_ONLY = ("plane", "pallas")
@@ -138,27 +166,45 @@ class RAFT(nn.Module):
         param_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        for field, what in _NOT_PORTED.items():
-            if getattr(cfg, field):
-                raise NotImplementedError(f"RAFTConfig({field}=True): {what} is not ported yet")
-        for field, what in _NOT_PORTED_OFF.items():
-            if not getattr(cfg, field):
-                raise NotImplementedError(f"RAFTConfig({field}=False): {what} is not ported yet")
         if cfg.lookup_backend not in LOOKUP_BACKENDS:
             raise ValueError(
                 f"RAFTConfig(lookup_backend={cfg.lookup_backend!r}): one of {LOOKUP_BACKENDS}"
             )
+        if cfg.small:  # 4 levels at radius 3, no mask head: bilinear upsampling
+            cfg = cfg.resolved()
         self.cfg = cfg
-        self.fnet = BasicEncoder(256, "instance")
-        self.cnet = BasicEncoder(cfg.hidden_dim + cfg.context_dim, "batch")
-        self.update_block = BasicUpdateBlock(cfg.hidden_dim, cfg.corr_levels, cfg.corr_radius)
+        hdim, cdim = cfg.hidden_dim, cfg.context_dim
+        self.gma = cfg.gma and not cfg.small
+        if cfg.small:
+            self.fnet = SmallEncoder(128, "instance")
+            self.cnet = SmallEncoder(hdim + cdim, "none")
+        else:
+            self.fnet = BasicEncoder(256, "instance")
+            self.cnet = BasicEncoder(hdim + cdim, "batch")
+        if self.gma:
+            self.att = Attention(cdim, cfg.num_heads, cdim, 160, cfg.position_only,
+                                 cfg.position_and_content)
+
+        def block():
+            if cfg.small:
+                return SmallUpdateBlock(hdim, cfg.corr_levels, cfg.corr_radius)
+            if self.gma:
+                return GMAUpdateBlock(hdim, cfg.corr_levels, cfg.corr_radius, cfg.num_heads,
+                                      cfg.convex_upsampling)
+            return BasicUpdateBlock(hdim, cfg.corr_levels, cfg.corr_radius, cfg.convex_upsampling)
+
         init_weights_(self.fnet, "extractor", generator)
         init_weights_(self.cnet, "extractor", generator)
+        self.update_block = block()
         init_weights_(self.update_block, "update", generator)
+        if self.gma:
+            init_weights_(self.att, "update", generator)
+            if hasattr(self.att, "pos_emb"):  # flax's normal(1.0) tables
+                for table in (self.att.pos_emb.rel_height, self.att.pos_emb.rel_width):
+                    with torch.no_grad():
+                        table.weight.normal_(generator=generator)
         if cfg.teacher:
-            self.teacher_update_block = BasicUpdateBlock(
-                cfg.hidden_dim, cfg.corr_levels, cfg.corr_radius
-            )
+            self.teacher_update_block = block()
             init_weights_(self.teacher_update_block, "update", generator)
         self.to(dtype=param_dtype or cfg.dtype, memory_format=torch.channels_last)
         self.eval()
@@ -219,9 +265,15 @@ class RAFT(nn.Module):
             return (zeros + torch.sum(coords1) * 0.0).to(cfg.dtype)
         return corr_pyramid_lookup_plane(pyramid, coords1, cfg.corr_radius, cfg.dtype)
 
+    def attention_map(self, inp: torch.Tensor) -> Optional[torch.Tensor]:
+        """GMA's attention map [B, heads, N, N] over the relu'd context ``inp``
+        (NCHW), in cfg.dtype, computed once per forward; None for the other
+        models."""
+        return self.att(inp) if self.gma else None
+
     def iterate(
         self, net, inp, pyramid, coords0, coords1, out_size, iters: int,
-        final_flow_only: bool = False, teacher: bool = False, crop=None,
+        final_flow_only: bool = False, teacher: bool = False, crop=None, attention=None,
     ):
         """Run ``iters`` refinement steps -> (net, coords1, flows_up, flows_low).
 
@@ -230,13 +282,21 @@ class RAFT(nn.Module):
         coords are detached at the top of every iteration (JAX's
         ``stop_gradient``). ``teacher``: refine with the teacher head.
         ``crop``: ``(crop_yx8, (h8, w8), (h, w))``, upsample only each
-        sample's crop window, at crop resolution (``_crop_upsample``)."""
+        sample's crop window, at crop resolution (``_crop_upsample``; the
+        bilinear upsample of a model without the mask head upsamples the
+        full frame and crops it, as JAX does). ``attention``: GMA's map
+        (``attention_map``), passed to every step of its update block."""
         cfg = self.cfg
         block = self.teacher_update_block if teacher else self.update_block
         b, h8, w8 = coords1.shape[:3]
-        mask = torch.zeros((b, h8, w8, 576), dtype=cfg.dtype, device=coords1.device)
+        mask = (torch.zeros((b, h8, w8, 576), dtype=cfg.dtype, device=coords1.device)
+                if cfg.convex_upsampling else None)
+        extra = (attention,) if self.gma else ()
 
         def upsample(flow_low, mask):
+            if mask is None:  # bilinear x8 with scaling (no mask head)
+                up = resize_flow(flow_low, out_size, scaling=True)
+                return up if crop is None else crop_bboxes(up, crop[0] * 8, crop[2])
             if crop is not None:
                 return _crop_upsample(flow_low, mask.float(), *crop) * 8.0
             return upsample_convex(flow_low, mask.float(), out_size) * 8.0
@@ -246,11 +306,11 @@ class RAFT(nn.Module):
             coords1 = coords1.detach()
             corr = self.lookup(pyramid, coords1)
             flow = (coords1 - coords0).to(cfg.dtype)
-            net, up_mask, delta = block(net, inp, nchw(corr), nchw(flow))
+            net, up_mask, delta = block(net, inp, nchw(corr), nchw(flow), *extra)
             coords1 = coords1 + nhwc(delta).float()
             flow_low = coords1 - coords0
             lows.append(flow_low)
-            mask = nhwc(up_mask)
+            mask = None if up_mask is None else nhwc(up_mask)
             if not final_flow_only:
                 ups.append(upsample(flow_low, mask))
         if final_flow_only:
@@ -301,17 +361,18 @@ class RAFT(nn.Module):
         if flow_init is not None:
             coords1 = coords1 + resize_flow(flow_init.float(), (h8, w8), scaling=True)
         _, _, flows_up, flows_low = self.iterate(
-            net, inp, pyramid, coords0, coords1, (h, w), iters, final_flow_only
+            net, inp, pyramid, coords0, coords1, (h, w), iters, final_flow_only,
+            attention=self.attention_map(inp),
         )
         return {"flow_up": flows_up, "flow_low": flows_low}
 
     # ---- flow-supervisor forward (counterpart of RAFT.semi_forward) --------
 
     def teacher_iterate(self, net, inp, pyramid, coords0, coords1, out_size, iters: int,
-                        final_flow_only: bool = False):
+                        final_flow_only: bool = False, attention=None):
         """Continue refinement with the teacher head."""
         return self.iterate(net, inp, pyramid, coords0, coords1, out_size, iters,
-                            final_flow_only, teacher=True)
+                            final_flow_only, teacher=True, attention=attention)
 
     def _directional(
         self, image1, pyramid, teacher_pyramid, teacher_image1, crop_yx8,
@@ -320,7 +381,9 @@ class RAFT(nn.Module):
         """One direction: the student on the crop, then the teacher from the
         student's final hidden state and flow zero-padded into the full frame,
         with the teacher context from the full image; the teacher's
-        predictions come back in the crop's frame."""
+        predictions come back in the crop's frame. GMA: the student's
+        attention map comes from its crop's context, the teacher's from the
+        full frame's, without gradient."""
         cfg = self.cfg
         b, h, w, _ = image1.shape
         fh, fw = teacher_image1.shape[1], teacher_image1.shape[2]
@@ -330,18 +393,20 @@ class RAFT(nn.Module):
         net, inp = self.context(image1)
         coords0 = coords_grid(b, h8, w8, device=image1.device)
         net, _, stu_up, stu_low = self.iterate(
-            net, inp, pyramid, coords0, coords0, (h, w), cfg.iters
+            net, inp, pyramid, coords0, coords0, (h, w), cfg.iters,
+            attention=self.attention_map(inp),
         )
         t_net = pad_bboxes(nhwc(net.detach()), crop_yx8, (fh8, fw8))
         t_flow = pad_bboxes(stu_low[-1].detach(), crop_yx8, (fh8, fw8))
         with torch.no_grad():
             _, t_inp = self.context(teacher_image1)
+            t_attention = self.attention_map(t_inp)
         t_coords0 = coords_grid(b, fh8, fw8, device=image1.device)
         with torch.set_grad_enabled(teacher_grad and torch.is_grad_enabled()):
             _, _, tea_up, tea_low = self.iterate(
                 nchw(t_net), t_inp, teacher_pyramid, t_coords0, t_coords0 + t_flow, (fh, fw),
                 cfg.teacher_iters, final_flow_only=teacher_final_only, teacher=True,
-                crop=(crop_yx8, (h8, w8), (h, w)),
+                crop=(crop_yx8, (h8, w8), (h, w)), attention=t_attention,
             )
         return stu_up, stu_low, tea_up, tea_low
 
@@ -402,9 +467,11 @@ class RAFT(nn.Module):
         net, inp = self.context(image1)
         coords0 = coords_grid(b, h8, w8, device=image1.device)
         _, _, fw_up, fw_low = self.iterate(
-            net, inp, pyramid, coords0, coords0, (h, w), self.cfg.iters, final_flow_only)
+            net, inp, pyramid, coords0, coords0, (h, w), self.cfg.iters, final_flow_only,
+            attention=self.attention_map(inp))
         bw_pyramid = self.build_corr(fmap2, fmap1)
         net2, inp2 = self.context(image2)
         _, _, bw_up, bw_low = self.iterate(
-            net2, inp2, bw_pyramid, coords0, coords0, (h, w), self.cfg.iters, final_flow_only)
+            net2, inp2, bw_pyramid, coords0, coords0, (h, w), self.cfg.iters, final_flow_only,
+            attention=self.attention_map(inp2))
         return {"flow_up": fw_up, "flow_low": fw_low, "flow_up_bw": bw_up, "flow_low_bw": bw_low}

@@ -4,9 +4,10 @@ model build, weight transplants, stepping and metric logging.
     from flow_supervisor_tpu_torch.training.loop import train
     model, state = train(cfg, data_iter, max_steps=100)
 
-The model type picks the step, as in the JAX package: ``raft-baseline``
-(training/baseline.py), ``raft-unsup`` (training/unsup.py) or ``raft-semi``
-(training/semi.py). ``data_iter`` yields one batch dict per step for the
+The model type picks the model and the step, as in the JAX package: the
+prefix ``raft`` or ``gma`` the model (``ModelCfg.small`` the small one), the
+suffix ``baseline`` (training/baseline.py), ``unsup`` (training/unsup.py) or
+``semi`` (training/semi.py) the step. ``data_iter`` yields one batch dict per step for the
 first two and a (sup_batch, unsup_batch) tuple for semi (each step's batch
 contract), from ``data.pipeline.fetch_dataloader`` or any source. The loop
 moves each batch to the device, steps, and every ``log_every`` steps appends
@@ -54,29 +55,33 @@ def frozen_bn(cfg: ExperimentConfig) -> bool:
 
 def build_model(cfg: ExperimentConfig, generator: Optional[torch.Generator] = None) -> RAFT:
     """The port's RAFT for a config, random weights from ``generator``;
-    ``teacher`` and ``freeze_bn`` resolved as in the JAX package. Parameters
-    are fp32 masters, cast to the compute dtype at each conv call."""
+    ``teacher``, ``freeze_bn``, GMA and the correlation levels and radius
+    resolved as in the JAX package (``RAFTConfig.resolved``: ModelCfg's
+    corr_levels / corr_radius are not read). Parameters are fp32 masters,
+    cast to the compute dtype at each conv call."""
     mc = cfg.model
     if mc.dropout != 0.0:
-        raise NotImplementedError("ModelCfg(dropout > 0) is not ported yet")
-    if mc.model_type.startswith("gma"):
-        raise NotImplementedError("GMA models are not ported yet (ROADMAP Queue 1, item 7)")
+        # the JAX step passes no "dropout" rng, so flax's dropout fails on an
+        # unfrozen-BN step; its SmallEncoder never applies the field
+        raise NotImplementedError("ModelCfg(dropout > 0) is not ported")
     rcfg = RAFTConfig(
         small=mc.small,
         iters=mc.iters,
-        corr_levels=mc.corr_levels,
-        corr_radius=mc.corr_radius,
         teacher=mc.model_type.endswith("semi"),
         teacher_iters=mc.teacher_iters,
         freeze_bn=frozen_bn(cfg),
+        gma=mc.model_type.startswith("gma"),
+        num_heads=mc.num_heads,
+        position_only=mc.position_only,
+        position_and_content=mc.position_and_content,
         dtype=_DTYPES[mc.compute_dtype],
         corr_dtype=_DTYPES[mc.corr_dtype],
         lookup_backend=mc.lookup_backend,
-    )
+    ).resolved()
     return RAFT(rcfg, generator=generator, param_dtype=torch.float32)
 
 
-MODEL_TYPES = ("raft-baseline", "raft-unsup", "raft-semi")
+MODEL_TYPES = tuple(f"{m}-{s}" for m in ("raft", "gma") for s in ("baseline", "unsup", "semi"))
 
 
 def _to(batch: dict, device) -> dict:
@@ -88,11 +93,11 @@ def make_step(model, cfg: ExperimentConfig, debug_grads: bool = False):
     type (semi's batch is the (sup, unsup) pair); ``debug_grads`` puts the
     gradients the step applied in its log as "_grads"."""
     mc, tc = cfg.model, cfg.train
-    if mc.model_type == "raft-semi":
+    if mc.model_type.endswith("semi"):
         semi = make_semi_train_step(model, mc, gamma=tc.loss_decay_rate,
                                     sup_loss_type=tc.loss_type, debug_grads=debug_grads)
         return lambda state, batch: semi(state, *batch)
-    if mc.model_type == "raft-unsup":
+    if mc.model_type.endswith("unsup"):
         return make_unsup_train_step(model, mc, debug_grads=debug_grads)
     return make_train_step(model, loss_type=tc.loss_type, gamma=tc.loss_decay_rate,
                            debug_grads=debug_grads)

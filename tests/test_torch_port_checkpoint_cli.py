@@ -14,6 +14,9 @@ training/checkpoint.py, training/loop.py, train.py) on the CPU.
 - ``pretrained_ckpt``: a chairs Baseline checkpoint's fnet, cnet (with its
   batch-norm statistics) and update block, and the teacher head copied from
   the update block.
+- GMA: the DAVIS recipe's model type and stage (``--model_type gma-semi
+  --stage semi-davis_unsup-ctskh``, the synthetic tree's DAVIS frames are
+  PNG) for 2 steps, then a resume to 4.
 - The refusals: ``--stage sintel_multiframe`` and ``--data_parallel 2``
   before the first step.
 - ``trace_dir``: a torch.profiler trace after two warm-up steps."""
@@ -247,6 +250,38 @@ def test_pretrained_ckpt_transplant_and_teacher_copy(tree, tmp_path):
     teacher = [k for k in sd if k.startswith("teacher_update_block.")]
     assert teacher and all(torch.equal(sd[k], pre[k[len("teacher_"):]]) for k in teacher)
     assert state.step == 0 and ckpt.latest_step(cfg.ckpt_dir) is None
+
+
+GMA_SMALL = ["--stage", "semi-davis_unsup-ctskh", "--model_type", "gma-semi",
+             "--image_size", "32", "48", "--unsup_image_size", "32", "48", "--full_size", "40", "56",
+             "--iters", "1", "--teacher_iters", "1", "--compute_dtype", "float32",
+             "--batch_size", "1", "--lr", "1e-4", "--lr_schedule", "exponential",
+             "--lr_decay_steps", "25000", "--weight_decay", "0.0", "--lfr_loss_type", "robust",
+             "--lfl_loss_decay_rate", "0.8", "--val_step", "2", "--val_iters", "1",
+             "--val_max_records", "1", "--log_every", "1", "--loader_workers", "0", "--seed", "5",
+             "--device", "cpu"]
+
+
+def test_cli_trains_and_resumes_the_gma_davis_recipe(tree, tmp_path):
+    """train.sh:47-53's model type and stage at 32x48: 2 steps, a checkpoint
+    and standing validation at 2, then the resume to 4 from args.yaml."""
+    run = str(tmp_path / "gma")
+    _cli([run, "--num_steps", "2"] + GMA_SMALL)
+    assert ckpt.checkpoint_steps(run) == [2]
+    at2 = ckpt.restore_checkpoint(run, map_location="cpu")
+    assert "att.to_qk.weight" in at2["model"]
+    assert "teacher_update_block.aggregator.to_v.weight" in at2["model"]
+    assert "att.to_qk.weight" in at2["opt_state"].mu  # the attention trains
+    assert pconfig.ExperimentConfig.load_yaml(run).model.model_type == "gma-semi"
+    _cli([run, "--num_steps", "4", "--device", "cpu"])
+    assert ckpt.checkpoint_steps(run) == [2, 4]
+    rows = _rows(run)
+    assert [r["step"] for r in rows if r["prefix"] == "train"] == [1, 2, 3, 4]
+    assert [r["step"] for r in rows if r["prefix"] == "val"] == [0, 2, 4]
+    assert all(np.isfinite(v) for r in rows for v in r.values() if isinstance(v, float))
+    at4 = ckpt.restore_checkpoint(run, map_location="cpu")
+    assert at4["step"] == 4 and at4["opt_state"].count == 4
+    assert not torch.equal(at4["model"]["att.to_qk.weight"], at2["model"]["att.to_qk.weight"])
 
 
 @pytest.mark.parametrize("flags,error", [

@@ -692,3 +692,87 @@ def test_cuda_einsum_lookup_refuses_tf32(cuda, monkeypatch):
     pyr = build_corr_pyramid_from_fmaps(torch.from_numpy(f1).to(cuda), torch.from_numpy(f2).to(cuda), 4)
     with pytest.raises(RuntimeError, match="allow_tf32"):
         corr_pyramid_lookup(pyr, torch.from_numpy(coords).to(cuda), R)
+
+
+# ---- radius 3 (the small model's) on K6-K9, and GMA / small end to end -------
+
+R3 = 3
+
+
+def _r3_case(b, c, dtype, dev, coords_kind, seed):
+    """_tile_case's 50x90 grid and coords; and the paths of K6-K9's tiles at
+    radius 3: (tile path, per query) over all levels."""
+    pyr, coords = _tile_case(b, c, dtype, dev, coords_kind, seed)
+    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R3)
+    return pyr, coords, (sum(int(t.tile_path.sum()) for t in tiles),
+                         sum(int(((t.queries > 0) & ~t.tile_path).sum()) for t in tiles))
+
+
+# K6 (B=1) and K7 (B=2, one launch per level) at radius 3: 8x8 supports, 49
+# outputs a level; smooth coords take the tile path, mixed and random both
+@pytest.mark.cuda
+@pytest.mark.parametrize("coords_kind", ["smooth", "mixed", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c", [(1, 128), (2, 128), (1, 36)])
+def test_cuda_k6_k7_at_radius_3_match_plain(cuda, coords_kind, dtype, b, c):
+    pyr, coords, (tile, per_query) = _r3_case(b, c, dtype, cuda, coords_kind, 70 + b + c)
+    assert tile > 0 and (per_query > 0) == (coords_kind != "smooth")
+    k2 = (2 * R3 + 1) ** 2
+    if b == 1:
+        got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, R3, dtype)
+    else:
+        got = torch.full((coords.shape[0], 4 * k2), float("nan"), device=cuda, dtype=dtype)
+        for lvl, f2 in enumerate(pyr.f2s):
+            corr_fused.corr_fused_level(pyr.f1, f2, lvl, coords, R3, got, (50, 90))
+    want = corr_fused.corr_fused_plain(pyr.f1, pyr.f2s, coords, R3, torch.float32)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
+    assert got.shape == (coords.shape[0], 4 * k2) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want, **tol)
+
+
+# K8 and K9 at radius 3 on both paths, with the limits of the radius-4 tests
+@pytest.mark.cuda
+@pytest.mark.parametrize("coords_kind", ["smooth", "mixed", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c", [(1, 128), (2, 128), (2, 36)])
+def test_cuda_k8_k9_at_radius_3_match_plain(cuda, coords_kind, dtype, b, c):
+    pyr, coords, (tile, per_query) = _r3_case(b, c, dtype, cuda, coords_kind, 80 + b + c)
+    assert tile > 0 and (per_query > 0) == (coords_kind != "smooth")
+    g = torch.randn(coords.shape[0], 4 * (2 * R3 + 1) ** 2,
+                    generator=torch.Generator().manual_seed(b + c)).to(cuda, dtype)
+    f1p, f2p = pyr.f1.float(), [f.float() for f in pyr.f2s]
+    got = corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, R3)
+    _check_k8(got, corr_fused.bwd_df1_plain(f1p, f2p, coords, g, R3), dtype)
+    assert torch.equal(corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, R3), got)
+    tol = dict(atol=1e-4, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-4, rtol=1e-2)
+    for a, w in zip(corr_fused.bwd_df2(pyr.f1, pyr.f2s, coords, g, R3),
+                    corr_fused.bwd_df2_plain(f1p, f2p, coords, g, R3)):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), w, **tol)
+
+
+# the GMA model (2 heads, position and content, every gamma 0.5) and the small
+# model (radius 3, bilinear upsampling), 64x96, 4 iterations, fp32: the card
+# (kernels) against the CPU (plain versions), as chip_smoke's parity phase
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fused", "plane"])
+@pytest.mark.parametrize("model_kw", [dict(gma=True, num_heads=2, position_and_content=True),
+                                      dict(small=True)], ids=["gma", "small"])
+def test_cuda_gma_and_small_forwards_match_the_cpu(cuda, model_kw, backend):
+    from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
+
+    gen = torch.Generator().manual_seed(5)
+    model = RAFT(RAFTConfig(iters=4, lookup_backend=backend, **model_kw), generator=gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("aggregator.gamma"):
+                p.fill_(0.5)
+    img1 = torch.rand(1, 64, 96, 3, generator=gen)
+    img2 = torch.roll(img1, (2, 3), (1, 2))
+    cpu = model(img1, img2, final_flow_only=True)["flow_up"][-1]
+    model.to(cuda)
+    n = corr_fused.all_launches + corr_plane.launches
+    gpu = model(img1.to(cuda), img2.to(cuda), final_flow_only=True)["flow_up"][-1].cpu()
+    assert corr_fused.all_launches + corr_plane.launches - n == 4
+    d = (gpu - cpu).abs()
+    assert torch.isfinite(gpu).all() and float(d.mean()) < 1e-3 and float(d.max()) < 2e-2

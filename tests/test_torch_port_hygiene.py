@@ -31,7 +31,7 @@ import flow_supervisor_tpu_torch.submission, flow_supervisor_tpu_torch.data.augm
 import flow_supervisor_tpu_torch.data.synthetic, flow_supervisor_tpu_torch.training.checkpoint
 import flow_supervisor_tpu_torch.train
 g = torch.Generator().manual_seed(0)
-model = RAFT(RAFTConfig(iters=2, lookup_backend=BACKEND), generator=g)
+model = RAFT(RAFTConfig(iters=2, lookup_backend=BACKEND, **MODEL_KW), generator=g)
 img = torch.rand(BATCH, 32, 48, 3, generator=g)
 out = model(img, img.flip(1), final_flow_only=True)
 print(json.dumps({
@@ -68,7 +68,8 @@ sup = {"image1": img((1, 32, 48, 3)), "image2": img((1, 32, 48, 3)),
        "valid": np.ones((1, 32, 48, 1), np.float32)}
 unsup = {k: v for k, v in sup.items() if k not in ("flow", "valid")}
 labeled = {k: np.concatenate([v, v]) for k, v in sup.items() if k in ("image1", "image2", "flow", "valid")}
-batch = {"raft-semi": (sup, unsup), "raft-unsup": unsup, "raft-baseline": labeled}[MODEL_TYPE]
+batch = ((sup, unsup) if MODEL_TYPE.endswith("semi") else unsup if MODEL_TYPE.endswith("unsup")
+         else labeled)
 cfg = ExperimentConfig(
     ModelCfg(model_type=MODEL_TYPE, iters=1, teacher_iters=1, compute_dtype="float32",
              lookup_backend="fused", **MODEL_KW),
@@ -91,6 +92,9 @@ _STEPS = {
     "raft-semi-smurf": ("semi", {"teacher_smurf_weight": 1.0, "occlusion": "brox"},
                         ["sup_label_loss", "lfl_loss", "sup_loss", "epe", "teacher_smurf_loss",
                          "lfr_loss", "unsup_loss"]),
+    "gma-semi": ("semi-davis_unsup-ctskh", {"num_heads": 2, "position_and_content": True},
+                 ["sup_label_loss", "lfl_loss", "sup_loss", "epe", "lfr_loss", "unsup_loss"]),
+    "raft-baseline-small": ("chairs", {"small": True}, ["loss", "epe"]),
 }
 
 
@@ -102,10 +106,11 @@ def _run(code: str) -> subprocess.CompletedProcess:
     )
 
 
-def _cpu_forward(backend: str, batch: int) -> dict:
+def _cpu_forward(backend: str, batch: int, model_kw: dict | None = None) -> dict:
     import json
 
-    code = _CPU_FORWARD.replace("BACKEND", repr(backend)).replace("BATCH", str(batch))
+    code = (_CPU_FORWARD.replace("BACKEND", repr(backend)).replace("BATCH", str(batch))
+            .replace("MODEL_KW", repr(model_kw or {})))
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -132,6 +137,20 @@ def test_cpu_forward_per_lookup_backend_launches_nothing(backend, batch):
     assert not res["lib_loaded"]
 
 
+@pytest.mark.parametrize("model_kw,backend", [
+    (dict(gma=True, num_heads=2, position_and_content=True), "fused"), (dict(small=True), "plane"),
+], ids=["gma_fused", "small_plane"])
+def test_cpu_gma_and_small_forwards_launch_nothing(model_kw, backend):
+    """GMA (its attention and aggregation are torch.matmul, no kernel) and the
+    small model (every norm of its fnet an instance norm, radius 3) on the CPU:
+    the plain versions, nothing launched or built, nothing of JAX imported."""
+    res = _cpu_forward(backend, 1, model_kw)
+    assert res["leaked"] == []
+    assert res["finite"] and res["shape"] == [1, 1, 32, 48, 2]
+    assert res["launches"] == [0] * N_KERNELS
+    assert not res["lib_loaded"]
+
+
 def _cpu_train_step(model_type: str, tmp_path) -> None:
     """One step of ``training.loop.train`` on the CPU (the fused lookup and its
     backward as plain PyTorch): finite logs in metrics.jsonl, no kernel
@@ -140,7 +159,7 @@ def _cpu_train_step(model_type: str, tmp_path) -> None:
 
     stage, extra, keys = _STEPS[model_type]
     code = (_CPU_STEP.replace("CKPT", repr(str(tmp_path)))
-            .replace("MODEL_TYPE", repr(model_type.replace("-smurf", "")))
+            .replace("MODEL_TYPE", repr(model_type.replace("-smurf", "").replace("-small", "")))
             .replace("MODEL_KW", repr(extra)).replace("STAGE", repr(stage)))
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
@@ -158,6 +177,15 @@ def test_cpu_semi_train_step_imports_no_jax_and_launches_nothing(tmp_path):
     _cpu_train_step("raft-semi", tmp_path)
 
 
+@pytest.mark.parametrize("model_type", ["gma-semi", "raft-baseline-small"])
+def test_cpu_gma_semi_and_small_baseline_steps_import_no_jax_and_launch_nothing(model_type,
+                                                                                 tmp_path):
+    """The gma-semi step (2 heads, position and content) and the small
+    model's chairs Baseline step, each one step through ``training.loop.train``
+    on the CPU."""
+    _cpu_train_step(model_type, tmp_path)
+
+
 @pytest.mark.parametrize("model_type", ["raft-unsup", "raft-baseline", "raft-semi-smurf"])
 def test_cpu_unsup_baseline_and_smurf_steps_import_no_jax_and_launch_nothing(model_type, tmp_path):
     """The Unsup step (frozen batch norm), the Baseline step (chairs: unfrozen
@@ -172,6 +200,7 @@ def test_no_source_file_imports_jax():
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG):
         paths += [os.path.join(root, n) for n in files if n.endswith((".py", ".cu", ".cuh"))]
+    assert os.path.join(PKG, "models", "gma.py") in paths
     offenders = []
     for path in paths:
         with open(path) as f:

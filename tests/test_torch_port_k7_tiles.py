@@ -8,7 +8,8 @@ out of S, the per-query dot products of a tile whose box is too large, and
 the bilinear combine of every query's support. The replay must equal
 ``corr_fused_plain`` up to fp32 sums in another order (atol 1e-5 on values
 of order 1), and every valid support tap of a tile-path query must lie in its
-tile's box, which lies inside the map. No JAX: the plain version is held
+tile's box, which lies inside the map; at radius 4 (RAFT, GMA) and 3 (the
+small model). No JAX: the plain version is held
 against the JAX package's Pallas kernel in tests/test_torch_port_kernels.py.
 """
 import numpy as np
@@ -18,8 +19,6 @@ import torch
 from flow_supervisor_tpu_torch.kernels import corr_fused
 
 R = 4
-SUP = 2 * R + 2
-K = 2 * R + 1
 LEVELS = 4
 FAR = [(1e9, -1e9), (-3e38, 3e38), (5e5, 7.5), (-2.5, -4e6)]
 
@@ -46,14 +45,16 @@ def _inputs(b, h, w, c, kind, seed):
     return f1, f2s, torch.from_numpy(coords.astype(np.float32))
 
 
-def _windows(coords, lvl, h2, w2):
+def _windows(coords, lvl, h2, w2, r=R):
     """Window bases (bx, by) [BQ] (clamped as the kernels clamp), fractional
-    parts (fx, fy) [BQ] and valid support taps [BQ, SUP, SUP] at level lvl."""
+    parts (fx, fy) [BQ] and valid support taps [BQ, SUP, SUP] at level lvl,
+    radius r (SUP = 2r + 2)."""
+    sup = 2 * r + 2
     cl = coords * (1.0 / 2.0 ** lvl)
     fl = torch.floor(cl)
-    bx = torch.clamp(fl[:, 0] - R, -SUP, w2).long()
-    by = torch.clamp(fl[:, 1] - R, -SUP, h2).long()
-    u = torch.arange(SUP)
+    bx = torch.clamp(fl[:, 0] - r, -sup, w2).long()
+    by = torch.clamp(fl[:, 1] - r, -sup, h2).long()
+    u = torch.arange(sup)
     ys = by[:, None, None] + u[None, :, None]
     xs = bx[:, None, None] + u[None, None, :]
     valid = (ys >= 0) & (ys < h2) & (xs >= 0) & (xs < w2)
@@ -69,23 +70,25 @@ def _tile_queries(b, h, w, bi, tyi, txi):
 
 def _combine(sup, fx, fy):
     """[n, SUP, SUP] supports / sqrt(C) -> [n, K * K] bilinear outputs, dx-major."""
+    K = sup.shape[1] - 1
     fx, fy = fx[:, None, None], fy[:, None, None]
     win = ((1 - fy) * (1 - fx) * sup[:, :K, :K] + (1 - fy) * fx * sup[:, :K, 1:]
            + fy * (1 - fx) * sup[:, 1:, :K] + fy * fx * sup[:, 1:, 1:])  # [n, dy, dx]
     return win.transpose(1, 2).reshape(len(sup), K * K)
 
 
-def _replay(f1, f2s, coords):
-    """[B*Q, L * K^2] by the kernels' algorithm; also the number of tiles on
-    each path."""
+def _replay(f1, f2s, coords, r=R):
+    """[B*Q, L * K^2] by the kernels' algorithm at radius r; also the number
+    of tiles on each path."""
+    SUP, K = 2 * r + 2, 2 * r + 1
     b, q, c = f1.shape
     h, w = f2s[0].shape[1], f2s[0].shape[2]
     rows = f1.reshape(b * q, c)
     out = torch.zeros(b * q, LEVELS * K * K)
     paths = {"tile": 0, "per_query": 0}
-    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, R))):
+    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, r))):
         h2, w2 = f2.shape[1], f2.shape[2]
-        bx, by, fx, fy, valid = _windows(coords, lvl, h2, w2)
+        bx, by, fx, fy, valid = _windows(coords, lvl, h2, w2, r)
         for bi, tyi, txi in np.ndindex(*tb.queries.shape):
             qs = _tile_queries(b, h, w, bi, tyi, txi)
             m = valid[qs]
@@ -116,13 +119,14 @@ def _replay(f1, f2s, coords):
 CASES = [(b, kind, (13, 21)) for b in (1, 2) for kind in ("identity", "smooth", "random", "far")]
 # a 40x48 map with random coords: level-0 and level-1 boxes exceed MAX_BOX_TAPS
 CASES += [(1, "random", (40, 48)), (2, "far", (40, 48))]
+# radius 3, the small model's (SUP = 8): smaller boxes, picks and combine
+R3_CASES = [(2, "smooth", (13, 21)), (1, "far", (13, 21)), (1, "random", (40, 48))]
 
 
-@pytest.mark.parametrize("b,kind,hw", CASES)
-def test_k7_tile_replay_matches_plain(b, kind, hw):
+def _check_replay(b, kind, hw, r):
     f1, f2s, coords = _inputs(b, *hw, c=16, kind=kind, seed=b + 10 * len(kind) + hw[0])
-    want = corr_fused.corr_fused_plain(f1, f2s, coords, R)
-    got, paths = _replay(f1, f2s, coords)
+    want = corr_fused.corr_fused_plain(f1, f2s, coords, r)
+    got, paths = _replay(f1, f2s, coords, r)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert paths["tile"] > 0
     if hw == (40, 48):  # windows that scatter: both paths run
@@ -132,12 +136,22 @@ def test_k7_tile_replay_matches_plain(b, kind, hw):
 
 
 @pytest.mark.parametrize("b,kind,hw", CASES)
-def test_k7_tile_boxes_hold_every_tap_and_stay_in_the_map(b, kind, hw):
+def test_k7_tile_replay_matches_plain(b, kind, hw):
+    _check_replay(b, kind, hw, R)
+
+
+@pytest.mark.parametrize("b,kind,hw", R3_CASES)
+def test_k7_tile_replay_matches_plain_at_radius_3(b, kind, hw):
+    _check_replay(b, kind, hw, 3)
+
+
+def _check_boxes(b, kind, hw, r):
     f1, f2s, coords = _inputs(b, *hw, c=16, kind=kind, seed=b + 10 * len(kind) + hw[0])
     h, w = hw
-    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, R))):
+    SUP = 2 * r + 2
+    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, r))):
         h2, w2 = f2.shape[1], f2.shape[2]
-        bx, by, _, _, valid = _windows(coords, lvl, h2, w2)
+        bx, by, _, _, valid = _windows(coords, lvl, h2, w2, r)
         some = tb.queries > 0
         assert bool((tb.x0[some] >= 0).all() and (tb.y0[some] >= 0).all())
         assert bool((tb.x1[some] <= w2).all() and (tb.y1[some] <= h2).all())
@@ -151,3 +165,13 @@ def test_k7_tile_boxes_hold_every_tap_and_stay_in_the_map(b, kind, hw):
             # the box is the tight bounding box of the tile's valid taps
             assert int(ys.min()) == int(tb.y0[bi, tyi, txi]) and int(ys.max()) + 1 == int(tb.y1[bi, tyi, txi])
             assert int(xs.min()) == int(tb.x0[bi, tyi, txi]) and int(xs.max()) + 1 == int(tb.x1[bi, tyi, txi])
+
+
+@pytest.mark.parametrize("b,kind,hw", CASES)
+def test_k7_tile_boxes_hold_every_tap_and_stay_in_the_map(b, kind, hw):
+    _check_boxes(b, kind, hw, R)
+
+
+@pytest.mark.parametrize("b,kind,hw", R3_CASES)
+def test_k7_tile_boxes_hold_every_tap_and_stay_in_the_map_at_radius_3(b, kind, hw):
+    _check_boxes(b, kind, hw, 3)

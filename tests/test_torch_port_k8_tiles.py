@@ -24,13 +24,11 @@ from flow_supervisor_tpu_torch.kernels import corr_fused
 from flow_supervisor_tpu_torch.ops.corr import support_cotangent, support_index
 
 R = 4
-SUP = 2 * R + 2
-K2 = (2 * R + 1) ** 2
 LEVELS = 4
 FAR = [(1e9, -1e9), (-3e38, 3e38), (5e5, 7.5), (-2.5, -4e6)]
 
 
-def _inputs(b, h, w, c, kind, seed):
+def _inputs(b, h, w, c, kind, seed, r=R):
     """f1 [B, h*w, C], pooled-size f2s, coords [B*h*w, 2] and g from numpy.
     kind: identity; smooth (identity + N(0, 2 px)); random (uniform over the
     map and 20 px beyond); far (random with the first rows far out)."""
@@ -49,21 +47,21 @@ def _inputs(b, h, w, c, kind, seed):
         coords = np.stack([rng.uniform(-20, w + 20, n), rng.uniform(-20, h + 20, n)], 1)
         if kind == "far":
             coords[: len(FAR)] = FAR
-    g = torch.from_numpy(rng.normal(0, 1, (b * h * w, LEVELS * K2)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(0, 1, (b * h * w, LEVELS * (2 * r + 1) ** 2)).astype(np.float32))
     return f1, f2s, torch.from_numpy(coords.astype(np.float32)), g
 
 
-def _level_supports(f1, f2, coords, g, lvl):
+def _level_supports(f1, f2, coords, g, lvl, r=R):
     """Window bases (bx, by) [BQ], valid taps [BQ, SUP, SUP] and d_sup / sqrt(C)
-    at level lvl."""
+    at level lvl, radius r (SUP = 2r + 2)."""
     h2, w2 = f2.shape[1], f2.shape[2]
     cl = coords * (1.0 / 2.0 ** lvl)
-    _, valid = support_index(cl, R, h2, w2)
-    gl = g.reshape(-1, LEVELS, K2)[:, lvl]
-    dsup = torch.where(valid, support_cotangent(gl, cl, R), 0.0) / f1.shape[2] ** 0.5
+    _, valid = support_index(cl, r, h2, w2)
+    gl = g.reshape(-1, LEVELS, (2 * r + 1) ** 2)[:, lvl]
+    dsup = torch.where(valid, support_cotangent(gl, cl, r), 0.0) / f1.shape[2] ** 0.5
     fl = torch.floor(cl)
-    bx = torch.clamp(fl[:, 0] - R, -SUP, w2).long()
-    by = torch.clamp(fl[:, 1] - R, -SUP, h2).long()
+    bx = torch.clamp(fl[:, 0] - r, -(2 * r + 2), w2).long()
+    by = torch.clamp(fl[:, 1] - r, -(2 * r + 2), h2).long()
     return bx, by, valid, dsup
 
 
@@ -78,18 +76,19 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _replay(f1, f2s, coords, g, operand="fp32"):
+def _replay(f1, f2s, coords, g, operand="fp32", r=R):
     """d_f1 [B, Q, C] fp32 by the kernel's algorithm: each level's tile
     products added into one accumulator in level order. operand: D on the
     tile path as fp32, "hilo" (a bf16 high part plus the bf16 rest) or "hi"
-    (bf16 alone); the per-query path keeps fp32."""
+    (bf16 alone); the per-query path keeps fp32. r: the radius."""
     b, q, c = f1.shape
     h, w = f2s[0].shape[1], f2s[0].shape[2]
-    uu, vv = torch.meshgrid(torch.arange(SUP), torch.arange(SUP), indexing="ij")
+    sup = 2 * r + 2
+    uu, vv = torch.meshgrid(torch.arange(sup), torch.arange(sup), indexing="ij")
     acc = torch.zeros(b * q, c)
-    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, R))):
+    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, r))):
         h2, w2 = f2.shape[1], f2.shape[2]
-        bx, by, valid, dsup = _level_supports(f1, f2, coords, g, lvl)
+        bx, by, valid, dsup = _level_supports(f1, f2, coords, g, lvl, r)
         for bi, tyi, txi in np.ndindex(*tb.queries.shape):
             qs = _tile_queries(b, h, w, bi, tyi, txi)
             m = valid[qs]
@@ -145,6 +144,19 @@ def test_k8_tile_replay_matches_plain(b, kind, hw, c):
         assert tiles[3].tile_path.any()
     elif kind in ("identity", "smooth"):  # every box fits
         assert all(bool(t.tile_path[t.queries > 0].all()) for t in tiles)
+
+
+# radius 3, the small model's (SUP = 8): the tile path (13x21) and both
+# paths (40x48 random)
+@pytest.mark.parametrize("b,kind,hw,c", [(2, "smooth", (13, 21), 36), (1, "far", (13, 21), 8),
+                                         (1, "random", (40, 48), 8)])
+def test_k8_tile_replay_matches_plain_at_radius_3(b, kind, hw, c):
+    f1, f2s, coords, g = _inputs(b, *hw, c=c, kind=kind, seed=_seed(b, kind, hw, c) + 3, r=3)
+    _check(_replay(f1, f2s, coords, g, r=3), corr_fused.bwd_df1_plain(f1, f2s, coords, g, 3), hw)
+    tiles = corr_fused.lookup_tiles(f1, f2s, coords, 3)
+    if kind == "random":
+        assert not tiles[0].tile_path[tiles[0].queries > 0].all()
+    assert any(bool(t.tile_path.any()) for t in tiles)
 
 
 # f2 rounded to bf16 (the tensor-core body's input), sums in fp32: the error

@@ -21,13 +21,11 @@ from flow_supervisor_tpu_torch.kernels import corr_fused
 from flow_supervisor_tpu_torch.ops.corr import support_cotangent, support_index
 
 R = 4
-SUP = 2 * R + 2
-K2 = (2 * R + 1) ** 2
 LEVELS = 4
 FAR = [(1e9, -1e9), (-3e38, 3e38), (5e5, 7.5), (-2.5, -4e6)]
 
 
-def _inputs(b, h, w, c, kind, seed):
+def _inputs(b, h, w, c, kind, seed, r=R):
     """f1 [B, h*w, C], pooled-size f2s, coords [B*h*w, 2] and g from numpy.
     kind: identity; smooth (identity + N(0, 2 px)); random (uniform over the
     map and 20 px beyond); far (random with the first rows far out)."""
@@ -46,21 +44,21 @@ def _inputs(b, h, w, c, kind, seed):
         coords = np.stack([rng.uniform(-20, w + 20, n), rng.uniform(-20, h + 20, n)], 1)
         if kind == "far":
             coords[: len(FAR)] = FAR
-    g = torch.from_numpy(rng.normal(0, 1, (b * h * w, LEVELS * K2)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(0, 1, (b * h * w, LEVELS * (2 * r + 1) ** 2)).astype(np.float32))
     return f1, f2s, torch.from_numpy(coords.astype(np.float32)), g
 
 
-def _level_supports(f1, f2, coords, g, lvl):
+def _level_supports(f1, f2, coords, g, lvl, r=R):
     """Window bases (bx, by) [BQ], valid taps [BQ, SUP, SUP] and d_sup / sqrt(C)
-    at level lvl."""
+    at level lvl, radius r (SUP = 2r + 2)."""
     h2, w2 = f2.shape[1], f2.shape[2]
     cl = coords * (1.0 / 2.0 ** lvl)
-    _, valid = support_index(cl, R, h2, w2)
-    gl = g.reshape(-1, LEVELS, K2)[:, lvl]
-    dsup = torch.where(valid, support_cotangent(gl, cl, R), 0.0) / f1.shape[2] ** 0.5
+    _, valid = support_index(cl, r, h2, w2)
+    gl = g.reshape(-1, LEVELS, (2 * r + 1) ** 2)[:, lvl]
+    dsup = torch.where(valid, support_cotangent(gl, cl, r), 0.0) / f1.shape[2] ** 0.5
     fl = torch.floor(cl)
-    bx = torch.clamp(fl[:, 0] - R, -SUP, w2).long()
-    by = torch.clamp(fl[:, 1] - R, -SUP, h2).long()
+    bx = torch.clamp(fl[:, 0] - r, -(2 * r + 2), w2).long()
+    by = torch.clamp(fl[:, 1] - r, -(2 * r + 2), h2).long()
     return bx, by, valid, dsup
 
 
@@ -71,17 +69,18 @@ def _tile_queries(b, h, w, bi, tyi, txi):
     return (bi * h * w + ys[:, None] * w + xs[None, :]).reshape(-1)
 
 
-def _replay(f1, f2s, coords, g):
-    """d_f2 per level in fp32 by the kernel's algorithm."""
+def _replay(f1, f2s, coords, g, r=R):
+    """d_f2 per level in fp32 by the kernel's algorithm at radius r."""
     b, q, c = f1.shape
     h, w = f2s[0].shape[1], f2s[0].shape[2]
     rows = f1.reshape(b * q, c)
-    uu, vv = torch.meshgrid(torch.arange(SUP), torch.arange(SUP), indexing="ij")
+    sup = 2 * r + 2
+    uu, vv = torch.meshgrid(torch.arange(sup), torch.arange(sup), indexing="ij")
     out = []
-    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, R))):
+    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, r))):
         h2, w2 = f2.shape[1], f2.shape[2]
         acc = torch.zeros(f2.shape, dtype=torch.float32)
-        bx, by, valid, dsup = _level_supports(f1, f2, coords, g, lvl)
+        bx, by, valid, dsup = _level_supports(f1, f2, coords, g, lvl, r)
         for bi, tyi, txi in np.ndindex(*tb.queries.shape):
             qs = _tile_queries(b, h, w, bi, tyi, txi)
             qs = qs[valid[qs].flatten(1).any(1)]
@@ -114,15 +113,18 @@ CASES = [(b, kind, (13, 21)) for b in (1, 2) for kind in ("identity", "smooth", 
 CASES += [(1, "random", (40, 48)), (2, "far", (40, 48))]
 
 
-@pytest.mark.parametrize("b,kind,hw", CASES)
-def test_k9_tile_replay_matches_plain(b, kind, hw):
-    f1, f2s, coords, g = _inputs(b, *hw, c=8, kind=kind, seed=b + 10 * len(kind) + hw[0])
-    want = corr_fused.bwd_df2_plain(f1, f2s, coords, g, R)
-    got = _replay(f1, f2s, coords, g)
+# radius 3, the small model's (SUP = 8)
+R3_CASES = [(2, "smooth", (13, 21)), (1, "far", (13, 21)), (1, "random", (40, 48))]
+
+
+def _check_replay(b, kind, hw, r):
+    f1, f2s, coords, g = _inputs(b, *hw, c=8, kind=kind, seed=b + 10 * len(kind) + hw[0], r=r)
+    want = corr_fused.bwd_df2_plain(f1, f2s, coords, g, r)
+    got = _replay(f1, f2s, coords, g, r)
     for lvl, (a, wl) in enumerate(zip(got, want)):
         atol = 1e-5 if hw == (13, 21) else 1e-5 + 1e-6 * float(wl.abs().max())
         torch.testing.assert_close(a, wl, atol=atol, rtol=0, msg=f"level {lvl}")
-    tiles = corr_fused.lookup_tiles(f1, f2s, coords, R)
+    tiles = corr_fused.lookup_tiles(f1, f2s, coords, r)
     if hw == (40, 48):  # both paths run
         assert not tiles[0].tile_path[tiles[0].queries > 0].all()
         assert tiles[3].tile_path.any()
@@ -131,12 +133,22 @@ def test_k9_tile_replay_matches_plain(b, kind, hw):
 
 
 @pytest.mark.parametrize("b,kind,hw", CASES)
-def test_k9_tile_boxes_hold_every_tap_and_stay_in_the_map(b, kind, hw):
-    f1, f2s, coords, g = _inputs(b, *hw, c=8, kind=kind, seed=b + 10 * len(kind) + hw[0])
+def test_k9_tile_replay_matches_plain(b, kind, hw):
+    _check_replay(b, kind, hw, R)
+
+
+@pytest.mark.parametrize("b,kind,hw", R3_CASES)
+def test_k9_tile_replay_matches_plain_at_radius_3(b, kind, hw):
+    _check_replay(b, kind, hw, 3)
+
+
+def _check_boxes(b, kind, hw, r):
+    f1, f2s, coords, g = _inputs(b, *hw, c=8, kind=kind, seed=b + 10 * len(kind) + hw[0], r=r)
     h, w = hw
-    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, R))):
+    SUP = 2 * r + 2
+    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, r))):
         h2, w2 = f2.shape[1], f2.shape[2]
-        bx, by, valid, _ = _level_supports(f1, f2, coords, g, lvl)
+        bx, by, valid, _ = _level_supports(f1, f2, coords, g, lvl, r)
         some = tb.queries > 0
         assert bool((tb.x0[some] >= 0).all() and (tb.y0[some] >= 0).all())
         assert bool((tb.x1[some] <= w2).all() and (tb.y1[some] <= h2).all())
@@ -148,3 +160,13 @@ def test_k9_tile_boxes_hold_every_tap_and_stay_in_the_map(b, kind, hw):
             xs = (bx[qs, None, None] + torch.arange(SUP)[None, None, :]).expand_as(m)[m]
             assert bool((ys >= tb.y0[bi, tyi, txi]).all() and (ys < tb.y1[bi, tyi, txi]).all())
             assert bool((xs >= tb.x0[bi, tyi, txi]).all() and (xs < tb.x1[bi, tyi, txi]).all())
+
+
+@pytest.mark.parametrize("b,kind,hw", CASES)
+def test_k9_tile_boxes_hold_every_tap_and_stay_in_the_map(b, kind, hw):
+    _check_boxes(b, kind, hw, R)
+
+
+@pytest.mark.parametrize("b,kind,hw", R3_CASES)
+def test_k9_tile_boxes_hold_every_tap_and_stay_in_the_map_at_radius_3(b, kind, hw):
+    _check_boxes(b, kind, hw, 3)

@@ -120,15 +120,6 @@ def test_run_pair_pads_runs_and_unpads(port_model, pair):
     np.testing.assert_array_equal(flow, full["flow_up"][-1, 0, 2:62, 3:93].numpy())
 
 
-@pytest.mark.parametrize(
-    "field,value",
-    [("small", True), ("gma", True), ("convex_upsampling", False)],
-)
-def test_unported_variants_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RAFT(RAFTConfig(**{field: value}))
-
-
 def test_teacher_head_is_built_and_trains_only_through_fused():
     model = RAFT(RAFTConfig(iters=1, teacher=True, teacher_iters=1))
     assert sorted(k for k in model.state_dict() if k.startswith("teacher_update_block.")) == sorted(

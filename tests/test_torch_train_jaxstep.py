@@ -98,6 +98,49 @@ def labels(rng, b: int = 1):
     return {"flow": flow, "valid": (rng.uniform(0, 1, (b, H, W, 1)) > 0.2).astype(np.float32)}
 
 
+def random_variables(jmodel, seed: int = 0, gamma: float = 0.5, hw=(H, W), full=(FH, FW)):
+    """Seeded numpy variables of the JAX model ``jmodel`` in the tree its
+    init gives (traced with ``jax.eval_shape``, not run: an eager init of a
+    whole model costs about 35 s on the CPU), by ``fill_variables``; the
+    model is initialized through ``semi_forward`` when it has a teacher head."""
+    key = jax.random.PRNGKey(0)
+    img, fimg = jnp.zeros((1, *hw, 3)), jnp.zeros((1, *full, 3))
+    if jmodel.cfg.teacher:
+        shapes = jax.eval_shape(lambda: jmodel.init(
+            key, img, img, fimg, fimg, jnp.zeros((1, 2), jnp.int32), method="semi_forward"))
+    else:
+        shapes = jax.eval_shape(lambda: jmodel.init(key, img, img))
+    return fill_variables(shapes, seed, gamma)
+
+
+def fill_variables(shapes, seed: int = 0, gamma: float = 0.5) -> dict:
+    """Seeded numpy values for a flax variables tree of shapes: encoder
+    (``fnet`` / ``cnet``) kernels He-uniform, the other kernels U(+-1 /
+    sqrt(fan_in)), biases U(+-0.1), batch- and group-norm scales, biases and
+    statistics in [0.5, 1.5], GMA's position tables N(0, 1) and every
+    aggregator's ``gamma`` at ``gamma`` (not its initial zero, which cuts q,
+    k and v out of the forward and its gradient)."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        names = [getattr(p, "key", str(p)) for p in path]
+        shape, last = leaf.shape, names[-1]
+        if names[0] == "batch_stats" or any(n in ("BatchNorm_0", "GroupNorm_0") for n in names):
+            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        if last == "gamma":
+            return np.full(shape, gamma, np.float32)
+        if last in ("rel_height", "rel_width"):
+            return rng.normal(0.0, 1.0, shape).astype(np.float32)
+        if last == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            encoder = len(names) > 1 and names[1] in ("fnet", "cnet")
+            lim = (6.0 / fan_in) ** 0.5 if encoder else fan_in ** -0.5
+            return rng.uniform(-lim, lim, shape).astype(np.float32)
+        return rng.uniform(-0.1, 0.1, shape).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, dict(shapes))
+
+
 def jnp_batch(batch: dict) -> dict:
     return {k: jnp.asarray(v) for k, v in batch.items()}
 
