@@ -2,14 +2,16 @@
 """Drive the PyTorch/CUDA port's RAFT inference path, its evaluation path,
 its three train steps (Baseline, Unsup, flow-supervisor semi with and
 without the teacher SMURF loss), its GMA and small models, its
-training-data path through the train CLI, and the two kernels that no model
-path reaches (K5, K11) on one NVIDIA GPU.
+training-data path through the train CLI, its entry points (the evaluate,
+extract_flow and ckpt_tool CLIs over JPEG frames and a Sintel tree), and
+the two kernels that no model path reaches (K5, K11) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Prints the card's name and power limit (as nvidia-smi gives them), builds
 the hand-written CUDA kernels of flow_supervisor_tpu_torch from the sources
-in this checkout (one nvcc per source, in parallel), then runs its phases,
+in this checkout (one nvcc per source, in parallel) and its host I/O
+library (g++), then runs its phases,
 each printing one JSON line per check or configuration:
 
 1. kernels: K1 (corr_plane), K2 (conv3x3 + stats), K3/K4 (instance norm),
@@ -110,8 +112,21 @@ each printing one JSON line per check or configuration:
    iterations) and the small model's chairs Baseline step (B=10, 368x496)
    through ``training.loop.train`` with their launch counts, and K8 / K9
    timed at radius 3 on the small step's lookup inputs; the train CLI for
-   gma-semi (stage semi-davis_unsup-ctskh) on a tiny synthetic tree, 2 steps
-   with validation, then a resume to 3;
+   gma-semi (stage semi-davis_unsup-ctskh) on a tiny synthetic tree (its
+   DAVIS frames baseline JPEG), 2 steps with validation, then a resume to 3;
+   entry (run after gma_small): the CLIs on a gma-semi checkpoint directory
+   (args.yaml, ckpt_1.pt; gamma 0.5, fp32, the auto lookup): extract_flow
+   over a DAVIS directory of three 480x854 .jpg frames written by the port's
+   encoder at quality 90, 12 iterations, with the launch counters reset (K6
+   12 times a pair, K2-K4 their encoder counts), two .flo files and two vis
+   PNGs, the first flow equal to ``Evaluator.predict`` on the same decoded
+   frames, host ms a pair by decode, forward and write, device ms and idle
+   share of a pair; evaluate on a 436x1024 Sintel tree (2 pairs a pass) at
+   12 + 12 iterations with the counters reset, equal to the ``Evaluator`` in
+   this process within 1e-6, device ms and idle share of a pair; ckpt_tool
+   list and clean, and the cleaned directory evaluates to the same numbers;
+   each frame's JPEG round trip (PSNR at least 38 dB) and decode ms a frame
+   (host clock);
 8. train_data: a dataset tree at the recipes' sizes written by the port's
    ``data/synthetic.py`` (Sintel 436x1024 training with flows and test,
    clean and final, 3 frames a scene; FlyingThings 540x960 with .pfm flows;
@@ -369,6 +384,19 @@ EVAL_PARITY_SHARE = 1e-2  # of each n-px accuracy and Fl-all
 # phase 2's backends; auto is fused on the card and einsum on the CPU
 PARITY_BACKENDS = ("plane", "fused", "pallas", "einsum", "zero", "auto")
 # the configuration whose main-path run gives each kernel's launches
+# phase entry: the CLIs on a gma-semi checkpoint directory (fp32, auto: K6
+# on the card), a DAVIS directory of 480x854 .jpg frames written by the
+# port's encoder, and a Sintel tree at 436x1024 (2 pairs a pass)
+ENTRY_DAVIS_HW = (480, 854)
+ENTRY_FRAMES = 3
+ENTRY_ITERS = 12
+ENTRY_JPEG_QUALITY = 90
+ENTRY_ROUND_TRIP_PSNR_DB = 38.0  # smooth frames at quality 90: 41.2 dB on the CPU
+ENTRY_EXACT = 1e-6  # the CLIs against the same call in this process (px, metrics)
+# The native readers against the numpy ones: files of each kind at its
+# dataset's size (Sintel .flo, FlyingChairs .ppm, FlyingThings3D flow .pfm)
+ENTRY_READ_FILES = 8
+ENTRY_READ_THREADS = 4
 HOME_CONFIG = {"corr_plane": ("plane", 1), "conv3x3_stats": ("plane", 1),
                "norm_stats": ("plane", 1), "norm_apply": ("plane", 1),
                "corr_fused_all": ("fused", 1), "corr_fused_level": ("fused", 8),
@@ -2439,6 +2467,236 @@ def phase_gma_small(dev):
     return r3, times, errs
 
 
+def native_read_times(d: str) -> dict:
+    """Host ms a file of the native .flo / .ppm / .pfm readers, one file a
+    call and (.flo, .ppm) the threaded batch reader, against the numpy
+    readers on the same files (best of 3 passes); raises if any output
+    differs from the numpy reader's."""
+    import numpy as np
+
+    from flow_supervisor_tpu_torch.data import io as pio
+    from flow_supervisor_tpu_torch.data import native
+
+    rng = np.random.default_rng(22)
+    kinds = (
+        ("flo", (436, 1024), lambda p: pio.write_flo(p, rng.normal(0, 5, (436, 1024, 2)).astype(
+            np.float32)), pio.read_flo_plain, native.read_flo, native.read_flo_batch),
+        ("ppm", (384, 512), lambda p: pio.write_ppm(p, rng.integers(0, 256, (384, 512, 3), np.uint8)),
+         lambda p: pio.read_ppm(p).astype(np.float32) / np.float32(255.0), native.read_ppm,
+         native.read_ppm_batch),
+        ("pfm", (540, 960), lambda p: pio.write_pfm(p, rng.normal(0, 5, (540, 960, 3)).astype(
+            np.float32)), pio.read_pfm_plain, native.read_pfm, None),
+    )
+    out = {}
+    for kind, (h, w), write, plain, read, batch in kinds:
+        paths = [os.path.join(d, f"{i}.{kind}") for i in range(ENTRY_READ_FILES)]
+        for p in paths:
+            write(p)
+        want = np.stack([plain(p) for p in paths])
+        if not np.array_equal(np.stack([read(p) for p in paths]), want):
+            raise AssertionError(f"entry: the native .{kind} reader differs from numpy's")
+        row = {"hw": [h, w], "files": len(paths)}
+        for name, fn in (("numpy", lambda: [plain(p) for p in paths]),
+                         ("native", lambda: [read(p) for p in paths])):
+            row[f"{name}_ms_per_file"] = 1e3 * min(timed(fn) for _ in range(3)) / len(paths)
+        if batch is not None:
+            if not np.array_equal(batch(paths, h, w, ENTRY_READ_THREADS), want):
+                raise AssertionError(f"entry: the native .{kind} batch reader differs from numpy's")
+            row["batch_ms_per_file"] = 1e3 * min(
+                timed(lambda: batch(paths, h, w, ENTRY_READ_THREADS)) for _ in range(3)) / len(paths)
+            row["batch_threads"] = ENTRY_READ_THREADS
+        out[kind] = row
+    return out
+
+
+def phase_entry(dev):
+    """The entry points on the card, as a user runs them: a DAVIS directory
+    of 480x854 baseline JPEG frames (the port's encoder, quality 90) and a
+    Sintel tree at 436x1024 (``write_eval_tree``), a gma-semi checkpoint
+    directory (``args.yaml`` and ``ckpt_1.pt``; every gamma 0.5, fp32, the
+    auto lookup). ``extract_flow`` over the frames at 12 iterations (after a
+    warm-up run) with the launch counters reset: K6 12 times a pair and
+    K2-K4 their encoder counts, two ``.flo`` files and two ``vis`` PNGs, the
+    first flow equal to ``Evaluator.predict`` on the same decoded frames, host
+    ms a pair by decode, forward and write, device ms and idle share of a
+    pair. ``evaluate`` on the Sintel tree at 12 iterations (and the
+    checkpoint's 12 teacher iterations) with the counters reset, equal to
+    the ``Evaluator`` in this process within 1e-6, and device ms and idle
+    share of a pair with the teacher split; ``ckpt_tool list`` and
+    ``clean``, and the cleaned directory evaluates to the same numbers. The
+    JPEG round trip of each frame (PSNR at least 38 dB) and decode ms a
+    frame (host clock)."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from flow_supervisor_tpu_torch import ckpt_tool, evaluate, extract_flow
+    from flow_supervisor_tpu_torch.config import ExperimentConfig, ModelCfg
+    from flow_supervisor_tpu_torch.data import datasets as D
+    from flow_supervisor_tpu_torch.data import native
+    from flow_supervisor_tpu_torch.data.io import read_flo, read_image, read_png, write_jpeg
+    from flow_supervisor_tpu_torch.data.pipeline import load_record
+    from flow_supervisor_tpu_torch.evaluation import Evaluator
+    from flow_supervisor_tpu_torch.profile_forward import profile
+    from flow_supervisor_tpu_torch.training import checkpoint as ckpt
+    from flow_supervisor_tpu_torch.training.loop import build_model
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(21)
+
+    def cli(main, argv) -> str:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+        if rc != 0:
+            raise AssertionError(f"entry: {main.__module__} {argv} exited {rc}")
+        return out.getvalue()
+
+    def metrics(res: dict) -> dict:
+        return {k: v for k, v in res.items()
+                if not k.endswith(("pairs_per_sec", "_ms_per_pair"))}
+
+    def same(where, got: dict, want: dict) -> float:
+        got, want = metrics(got), metrics(want)
+        if set(got) != set(want) or not want:
+            raise AssertionError(f"{where}: keys {sorted(got)} != {sorted(want)}")
+        diff = max(abs(got[k] - want[k]) for k in want)
+        if not diff <= ENTRY_EXACT:
+            raise AssertionError(f"{where}: differs by {diff}: {got} vs {want}")
+        return diff
+
+    with tempfile.TemporaryDirectory() as tmp:
+        davis = os.path.join(tmp, "DAVIS/JPEGImages/480p/bear")
+        os.makedirs(davis)
+        frames = eval_frames(ENTRY_FRAMES, *ENTRY_DAVIS_HW, gen)
+        jpeg = []
+        for i, frame in enumerate(frames):
+            path = os.path.join(davis, f"{i:05d}.jpg")
+            t0 = time.perf_counter()
+            write_jpeg(path, frame, ENTRY_JPEG_QUALITY)
+            enc_s = time.perf_counter() - t0
+            back = native.read_jpeg(path)
+            mse = float(((back.astype(np.float64) - frame) ** 2).mean())
+            psnr = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+            dec_ms = 1e3 * min(timed(lambda: native.read_jpeg(path)) for _ in range(5))
+            jpeg.append({"file": os.path.basename(path), "bytes": os.path.getsize(path),
+                         "psnr_db": psnr, "mean_abs_err": float(np.abs(
+                             back.astype(np.int32) - frame).mean()),
+                         "encode_s": enc_s, "decode_ms": dec_ms})
+            if back.shape != frame.shape or psnr < ENTRY_ROUND_TRIP_PSNR_DB:
+                raise AssertionError(f"entry: JPEG round trip of {path}: {jpeg[-1]}")
+        emit({"phase": "entry", "ok": True, "jpeg": jpeg, "quality": ENTRY_JPEG_QUALITY,
+              "hw": list(ENTRY_DAVIS_HW), "decode_ms_per_frame": min(j["decode_ms"] for j in jpeg),
+              "clock": "host"})
+        reads = os.path.join(tmp, "reads")
+        os.makedirs(reads)
+        emit({"phase": "entry", "ok": True, "native_reads": native_read_times(reads),
+              "clock": "host"})
+
+        run = os.path.join(tmp, "gma_semi")
+        cfg = ExperimentConfig(ModelCfg(model_type="gma-semi", iters=ENTRY_ITERS,
+                                        teacher_iters=ENTRY_ITERS, compute_dtype="float32",
+                                        lookup_backend="auto"), ckpt_dir=run)
+        cfg.save_yaml()
+        model = build_model(cfg, generator=gen)
+        set_gamma(model)
+        ckpt.save_checkpoint(run, 1, model.state_dict())
+        del model
+
+        # extract_flow: a warm-up run, then the main path with the counters reset
+        cli(extract_flow.main, [run, "--source_dirs", davis, "--target_dirs",
+                                os.path.join(tmp, "warm"), "--eval_iters", str(ENTRY_ITERS)])
+        out = os.path.join(tmp, "extracted")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        text = cli(extract_flow.main, [run, "--source_dirs", davis, "--target_dirs", out,
+                                       "--eval_iters", str(ENTRY_ITERS)])
+        torch.cuda.synchronize()
+        pairs = ENTRY_FRAMES - 1
+        per_pair = eval_launch_check("entry extract_flow", launch_counts(), pairs, ENTRY_ITERS, 0)
+        summary = json.loads(text.strip().splitlines()[-1])["extract_flow"]
+        names = sorted(os.listdir(davis))[:-1]
+        flos = sorted(os.listdir(os.path.join(out, "flo")))
+        vis = sorted(os.listdir(os.path.join(out, "vis")))
+        if flos != [n + ".flo" for n in names] or vis != [n + "_flow.png" for n in names]:
+            raise AssertionError(f"entry extract_flow wrote {flos} and {vis}")
+        for n in vis:
+            img = read_png(os.path.join(out, "vis", n))
+            if img.shape != (*ENTRY_DAVIS_HW, 3) or img.dtype != np.uint8:
+                raise AssertionError(f"entry extract_flow: {n} is {img.shape} {img.dtype}")
+        flow = read_flo(os.path.join(out, "flo", flos[0]))
+        model = extract_flow.load_model(run, device="cuda")
+        ev = Evaluator(model, iters=ENTRY_ITERS, use_teacher=False)
+        img1, img2 = (read_image(os.path.join(davis, n)) for n in sorted(os.listdir(davis))[:2])
+        want = ev.predict(img1, img2, "sintel")[0]["student"][0]
+        d_flow = float(np.abs(flow - want).max())
+        if flow.shape != (*ENTRY_DAVIS_HW, 2) or not np.isfinite(flow).all() or d_flow > ENTRY_EXACT:
+            raise AssertionError(f"entry extract_flow: the .flo differs from Evaluator.predict "
+                                 f"by {d_flow} px (shape {flow.shape})")
+        prof = profile(lambda: ev.predict(img1, img2, "sintel"), n=1)
+        emit({"phase": "entry", "ok": True, "cli": "extract_flow", "model": "gma-semi (student)",
+              "hw": list(ENTRY_DAVIS_HW), "pairs": pairs, "iters": ENTRY_ITERS,
+              "dtype": "float32", "lookup_backend": "auto (fused)",
+              "launches_per_pair": per_pair, "host": summary,
+              "max_abs_diff_vs_predict_px": d_flow, "mean_abs_flow_px": float(np.abs(flow).mean()),
+              "device_ms_per_pair": prof.get("device_ms_per_forward"),
+              "device_idle_share": prof.get("device_idle_share"),
+              "launches_per_pair_all": prof.get("launches_per_forward"),
+              "by_category_ms_per_pair": prof.get("by_category_ms_per_forward")})
+        del model, ev
+
+        # evaluate on the Sintel tree, against the Evaluator in this process
+        with data_root(os.path.join(tmp, "datasets")):
+            write_eval_tree(os.path.join(tmp, "datasets"), gen, EVAL_SINTEL_HW, EVAL_PARITY_HW,
+                            sintel_frames=3)
+            argv = ["--dataset", "sintel", "--eval_iters", str(ENTRY_ITERS)]
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            got = json.loads(cli(evaluate.main, [run, *argv]))
+            torch.cuda.synchronize()
+            eval_pairs = sum(len(D.sintel(True, p)) for p in ("clean", "final"))
+            eval_per_pair = eval_launch_check("entry evaluate", launch_counts(), eval_pairs,
+                                              ENTRY_ITERS, ENTRY_ITERS)
+            check_eval_result("entry evaluate", {k[len("clean_"):]: v for k, v in got.items()
+                                                 if k.startswith("clean_")}, sparse=False)
+            model, _ = evaluate.load_model(run, device="cuda")
+            ev = Evaluator(model, iters=ENTRY_ITERS)
+            want = {}
+            for p in ("clean", "final"):
+                want.update({f"{p}_{k}": v for k, v in ev.evaluate(D.sintel(True, p)).items()})
+            d_eval = same("entry evaluate vs the Evaluator", got, want)
+            img1, img2, _, _ = load_record(D.sintel(True, "clean")[0])
+            eprof = profile(lambda: ev.predict(img1, img2, "sintel"), n=1)
+            del model, ev
+
+            listing = cli(ckpt_tool.main, ["list", run]).strip()
+            if listing != "steps: [1]":
+                raise AssertionError(f"entry ckpt_tool list: {listing!r}")
+            clean = os.path.join(tmp, "gma_semi_clean")
+            cli(ckpt_tool.main, ["clean", run, clean])
+            restored = ckpt.restore_checkpoint(clean, map_location="cpu")
+            if restored["opt_state"] is not None or ckpt.checkpoint_steps(clean) != [1]:
+                raise AssertionError("entry ckpt_tool clean: not one optimizer-free checkpoint")
+            cleaned = json.loads(cli(evaluate.main, [clean, *argv]))
+            d_clean = same("entry evaluate of the cleaned directory", cleaned, got)
+        emit({"phase": "entry", "ok": True, "cli": "evaluate", "model": "gma-semi",
+              "dataset": "sintel", "hw": list(EVAL_SINTEL_HW), "pairs": eval_pairs,
+              "iters": ENTRY_ITERS, "teacher_iters": ENTRY_ITERS, "dtype": "float32",
+              "launches_per_pair": eval_per_pair, "metrics": got,
+              "pairs_per_s": {p: got[f"{p}_pairs_per_sec"] for p in ("clean", "final")},
+              "host_ms_per_pair": {p: {k: got[f"{p}_{k}_ms_per_pair"]
+                                       for k in ("decode", "warm_start", "forward")}
+                                   for p in ("clean", "final")},
+              "device_ms_per_pair": eprof.get("device_ms_per_forward"),
+              "device_idle_share": eprof.get("device_idle_share"),
+              "launches_per_pair_all": eprof.get("launches_per_forward"),
+              "by_category_ms_per_pair": eprof.get("by_category_ms_per_forward"),
+              "max_abs_diff_vs_evaluator": d_eval, "ckpt_tool": listing,
+              "max_abs_diff_cleaned": d_clean})
+    emit({"phase": "entry", "ok": True, "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> int:
     import torch
 
@@ -2456,10 +2714,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    from flow_supervisor_tpu_torch.data import native
+
     t0 = time.perf_counter()
     _build.lib()
+    native.lib()
     emit({"phase": "build", "ok": True, "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": _build.build_seconds, "library": _build.library_path().name})
+          "nvcc_seconds": _build.build_seconds, "library": _build.library_path().name,
+          "host_library_seconds": native.build_seconds,
+          "host_library": native.library_path().name})
 
     errs = phase_kernels(dev)
     phase_parity(dev)
@@ -2470,6 +2733,7 @@ def main() -> int:
     phase_train_parity(dev)
     launches[("train", 1)], times[("train", 1)], semi_res = phase_train_main(dev)
     r3_launches, r3_times, r3_errs = phase_gma_small(dev)
+    phase_entry(dev)
     phase_train_data(dev, semi_res)
 
     kernels = []

@@ -7,8 +7,9 @@ no cv2.
 
 Frames are uniform random RGB noise, flows N(0, 1) px. Beside the JAX
 package's tree it holds FlyingChairs (``.ppm`` pairs, ``.flo`` flows and the
-train / val split file) and writes DAVIS frames as ``.png``, which
-``frames_directory`` lists as it lists ``.jpg`` (the port reads no JPEG).
+train / val split file). DAVIS frames are baseline JPEG (``.jpg``), as the
+JAX package's tree writes them with cv2, here by the port's own encoder
+(``data.io.write_jpeg``, 4:2:0 at quality 90).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from pathlib import Path
 import numpy as np
 
 from flow_supervisor_tpu_torch.data.io import (
-    write_flo, write_flow_kitti, write_pfm, write_png, write_ppm)
+    write_flo, write_flow_kitti, write_jpeg, write_pfm, write_png, write_ppm)
 
 DATASETS = ("sintel", "things", "chairs", "kitti", "hd1k", "davis")
 
@@ -42,7 +43,8 @@ def build_synthetic_tree(root, hw=(48, 64), sizes=None, frames: int = 3,
     def image(path, name):
         h, w = sizes[name]
         frame = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
-        (write_ppm if str(path).endswith(".ppm") else write_png)(str(path), frame)
+        writer = {".ppm": write_ppm, ".jpg": write_jpeg}.get(Path(path).suffix, write_png)
+        writer(str(path), frame)
 
     def flow(name):
         h, w = sizes[name]
@@ -104,4 +106,4 @@ def build_synthetic_tree(root, hw=(48, 64), sizes=None, frames: int = 3,
     # davis
     dv = mkdir(root / "DAVIS/JPEGImages/480p/bear")
     for i in range(3):
-        image(dv / f"{i:05d}.png", "davis")
+        image(dv / f"{i:05d}.jpg", "davis")

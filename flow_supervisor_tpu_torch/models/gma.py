@@ -7,12 +7,16 @@
   q scaled by dim_head^-0.5; the similarity is the content term q . k
   (default), the position term alone (``position_only``) or their sum
   (``position_and_content``); softmax over the source pixels in fp32, the
-  map cast to the compute dtype (JAX's stays fp32 in bf16 with a position
-  term, which its fp32 tables promote). Beyond the tables (h or w >
-  max_pos_size) the port raises where JAX's gather clamps.
-- ``Aggregate``: 1x1 conv (no bias) -> v; the attention-weighted sum of v; a
-  1x1 projection (no bias) where heads * dim_head != dim; the residual
-  scaled by ``gamma``, a scalar that starts at zero.
+  map in the dtype of the scores as JAX's type promotion gives it: the
+  position term is q against JAX's fp32 tables, in fp32, so in a bf16 run
+  the map is fp32 in the two position modes and bf16 in the content mode.
+  Beyond the tables (h or w > max_pos_size) the port raises where JAX's
+  gather clamps.
+- ``Aggregate``: 1x1 conv (no bias) -> v; the attention-weighted sum of v
+  (in the map's dtype when it is wider: an fp32 map weighs v promoted to
+  fp32, as JAX's einsum does); a 1x1 projection (no bias, in fmap's
+  dtype) where heads * dim_head != dim; the residual scaled by ``gamma``,
+  a scalar that starts at zero.
 - ``GMAUpdateBlock``: the GRU input is context 128 + motion 128 + the motion
   aggregated over the frame 128.
 
@@ -56,13 +60,15 @@ class RelPosEmb(nn.Module):
         self.rel_height = nn.Embedding(2 * max_pos_size - 1, dim_head)
         self.rel_width = nn.Embedding(2 * max_pos_size - 1, dim_head)
 
-    def _table(self, emb: nn.Embedding, n: int, dtype) -> torch.Tensor:
+    def _table(self, emb: nn.Embedding, n: int) -> torch.Tensor:
         """emb's rows at i - j + max_pos_size - 1 -> [n, n, dim_head]."""
         i = torch.arange(n, device=emb.weight.device)
-        return emb.weight.to(dtype)[i[:, None] - i[None, :] + self.max_pos_size - 1]
+        return emb.weight[i[:, None] - i[None, :] + self.max_pos_size - 1]
 
     def forward(self, q: torch.Tensor) -> torch.Tensor:
-        """q [B, heads, h, w, d] -> scores [B, heads, h, w, h, w]."""
+        """q [B, heads, h, w, d] -> scores [B, heads, h, w, h, w] in fp32:
+        JAX's tables are fp32 parameters (here they may be stored in the
+        compute dtype), and its einsum promotes q to them."""
         h, w = q.shape[2], q.shape[3]
         if max(h, w) > self.max_pos_size:
             # JAX's gather clamps the out-of-range indices; the port refuses them
@@ -70,8 +76,9 @@ class RelPosEmb(nn.Module):
                 f"RelPosEmb: a {h}x{w} feature map exceeds max_pos_size {self.max_pos_size} "
                 "(the position tables cover offsets below it)"
             )
-        height = torch.einsum("bnxyd,xud->bnxyu", q, self._table(self.rel_height, h, q.dtype))
-        width = torch.einsum("bnxyd,yvd->bnxyv", q, self._table(self.rel_width, w, q.dtype))
+        q = q.float()
+        height = torch.einsum("bnxyd,xud->bnxyu", q, self._table(self.rel_height, h).float())
+        width = torch.einsum("bnxyd,yvd->bnxyv", q, self._table(self.rel_width, w).float())
         return height[..., :, None] + width[..., None, :]
 
 
@@ -91,7 +98,8 @@ class Attention(nn.Module):
 
     def forward(self, fmap: torch.Tensor) -> torch.Tensor:
         """fmap NCHW [B, dim, h, w] -> the attention map [B, heads, N, N] in
-        fmap's dtype, rows (queries) summing to 1 over the source pixels."""
+        the scores' dtype (module docstring), rows (queries) summing to 1
+        over the source pixels."""
         b, _, h, w = fmap.shape
         inner = self.heads * self.dim_head
         qk = nhwc(self.to_qk(fmap))  # [B, h, w, 2 * inner]
@@ -109,7 +117,7 @@ class Attention(nn.Module):
                                k.reshape(b, self.heads, n, self.dim_head).transpose(-1, -2))
             if self.position_and_content:
                 sim = sim + self.pos_emb(q).reshape(b, self.heads, n, n)
-        return torch.softmax(sim.float(), dim=-1).to(fmap.dtype)
+        return torch.softmax(sim.float(), dim=-1).to(sim.dtype)
 
 
 class Aggregate(nn.Module):
@@ -127,10 +135,11 @@ class Aggregate(nn.Module):
         b, _, h, w = fmap.shape
         inner = self.heads * self.dim_head
         v = nhwc(self.to_v(fmap)).reshape(b, h * w, self.heads, self.dim_head)
-        out = torch.matmul(attn, v.transpose(1, 2))  # [B, heads, N, d]
+        dtype = torch.promote_types(attn.dtype, v.dtype)
+        out = torch.matmul(attn.to(dtype), v.transpose(1, 2).to(dtype))  # [B, heads, N, d]
         out = nchw(out.transpose(1, 2).reshape(b, h, w, inner))
         if self.project is not None:
-            out = self.project(out)
+            out = self.project(out.to(fmap.dtype))
         return (fmap + self.gamma * out).to(fmap.dtype)
 
 

@@ -16,7 +16,7 @@ training/checkpoint.py, training/loop.py, train.py) on the CPU.
   the update block.
 - GMA: the DAVIS recipe's model type and stage (``--model_type gma-semi
   --stage semi-davis_unsup-ctskh``, the synthetic tree's DAVIS frames are
-  PNG) for 2 steps, then a resume to 4.
+  baseline JPEG) for 2 steps, then a resume to 4.
 - The refusals: ``--stage sintel_multiframe`` and ``--data_parallel 2``
   before the first step.
 - ``trace_dir``: a torch.profiler trace after two warm-up steps."""

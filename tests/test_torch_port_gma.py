@@ -11,6 +11,9 @@ package's, on the CPU, fp32.
   lookup backend of the port, ``semi_forward`` on a 32x48 crop of 48x64
   frames, ``unsup_forward``, the ``Evaluator``'s teacher split (one map for
   the student and the teacher), and the weight bridge both ways;
+- bf16: the attention map's dtype in the three modes (fp32 in the
+  position modes, where JAX's fp32 tables promote the scores; bf16 in the
+  content mode) and the update block fed a position mode's fp32 map;
 - the divergence pinned: a map taller or wider than the position tables
   (h8 or w8 > 160) is refused by the port, where JAX's gather clamps.
 
@@ -141,6 +144,85 @@ def test_gma_update_block_matches_flax():
     want = _apply(mod, v, *args)
     for g, w_ in zip(got, want):
         _close(g.permute(0, 2, 3, 1), w_, 1e-4)
+
+
+# ---- bf16: the map's dtype in the position modes ---------------------------
+
+BF16_MAP_TOL = 1e-5  # of the map's largest entry (the old bf16 cast was 4e-3 and 6e-3 away)
+BF16_BLOCK_TOL = 3e-2  # of each output's largest value: bf16 convs on both sides
+
+
+def _attention_pair(mode, dtype):
+    """A flax Attention (compute ``dtype``) and the port's on the same seeded
+    parameters, 1 head of 16 over 5x6 maps of 16 channels."""
+    flags = dict(position_only=mode == "position_only",
+                 position_and_content=mode == "position_and_content")
+    mod = jgma.Attention(dim=16, heads=1, dim_head=16, max_pos_size=8, dtype=dtype, **flags)
+    fmap = np.random.default_rng(11).normal(0, 1, (1, 5, 6, 16)).astype(np.float32)
+    v = _init(mod, jnp.asarray(fmap))
+    port = gma.Attention(16, 1, 16, 8, **flags)
+    p = v["params"]
+    port.to_qk.weight.data = _oihw(p["Conv_0"]["kernel"])
+    if mode != "content":
+        for t in ("rel_height", "rel_width"):
+            getattr(port.pos_emb, t).weight.data = torch.from_numpy(np.array(p["RelPosEmb_0"][t]))
+    return mod, v, port, fmap
+
+
+@pytest.mark.parametrize("mode", ["content", "position_only", "position_and_content"])
+def test_attention_bf16_map_dtype_follows_jax(mode):
+    """In bf16 JAX's map takes the dtype of the promoted scores: its fp32
+    position tables make it fp32 in the position modes; the content mode's
+    stays bf16. The port's follows (it once cast every map to the compute
+    dtype), and its values agree within bf16's rounding of q, k and the
+    content scores."""
+    mod, v, port, fmap = _attention_pair(mode, jnp.bfloat16)
+    x = jnp.asarray(fmap, jnp.bfloat16)
+    want = _apply(mod, v, x)
+    with torch.no_grad():
+        got = port(_nchw(fmap).to(torch.bfloat16))
+    assert str(got.dtype).replace("torch.", "") == str(want.dtype)
+    assert str(want.dtype) == ("bfloat16" if mode == "content" else "float32")
+    want = np.asarray(want.astype(jnp.float32))
+    err = np.abs(got.float().numpy() - want).max()
+    print(f"bf16 {mode}: map {got.dtype}, max |port - JAX| {err:.3e} of max {want.max():.3f}")
+    assert err <= BF16_MAP_TOL * want.max(), err
+
+
+@pytest.mark.parametrize("mode", ["position_only", "position_and_content"])
+def test_gma_update_block_bf16_with_a_position_map_matches_flax(mode):
+    """The bf16 update block fed the fp32 map of a position mode: the
+    aggregation runs against the fp32 map (v promoted), as JAX's einsum
+    does, and the three outputs agree with JAX's."""
+    amod, av, aport, fmap = _attention_pair(mode, jnp.bfloat16)
+    rng = np.random.default_rng(12)
+    b, h8, w8 = 1, 5, 6
+    net = np.tanh(rng.normal(0, 1, (b, h8, w8, 128))).astype(np.float32)
+    inp = np.maximum(rng.normal(0, 1, (b, h8, w8, 128)), 0).astype(np.float32)
+    corr = rng.normal(0, 1, (b, h8, w8, 4 * 81)).astype(np.float32)
+    flow = rng.normal(0, 2, (b, h8, w8, 2)).astype(np.float32)
+    jattn = _apply(amod, av, jnp.asarray(fmap, jnp.bfloat16))
+    with torch.no_grad():
+        attn = aport(_nchw(fmap).to(torch.bfloat16))
+    assert attn.dtype == torch.float32 and str(jattn.dtype) == "float32"
+    mod = jgma.GMAUpdateBlock(hidden_dim=128, corr_levels=4, corr_radius=4, heads=1,
+                              dtype=jnp.bfloat16)
+    args = [jnp.asarray(a, jnp.bfloat16) for a in (net, inp, corr, flow)]
+    v = _init(mod, *args, jattn)
+    port = gma.GMAUpdateBlock(128, 4, 4, 1)
+    sd = {}
+    from flow_supervisor_tpu_torch.convert import _update_block
+
+    _update_block(sd, "b", jax.tree_util.tree_map(np.asarray, v["params"]))
+    port.load_state_dict({k[2:]: torch.from_numpy(np.array(a)) for k, a in sd.items()})
+    with torch.no_grad():
+        got = port(*[_nchw(a).to(torch.bfloat16) for a in (net, inp, corr, flow)], attn)
+    want = _apply(mod, v, *args, jattn)
+    for name, g, w_ in zip(("net", "mask", "delta_flow"), got, want):
+        w_ = np.asarray(w_.astype(jnp.float32))
+        err = np.abs(g.float().permute(0, 2, 3, 1).numpy() - w_).max()
+        print(f"bf16 {mode} update block {name}: max |port - JAX| {err:.3e} of {np.abs(w_).max():.3f}")
+        assert err <= BF16_BLOCK_TOL * np.abs(w_).max(), (name, err)
 
 
 # ---- the GMA RAFT ------------------------------------------------------------

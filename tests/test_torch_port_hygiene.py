@@ -1,9 +1,11 @@
 """The port stands alone: it imports no JAX, no flax, no yaml, no cv2, no
-PIL and nothing of the JAX package (every module, the data readers,
-augmentors, loaders, checkpoints, config, train CLI and evaluation
-included), on CPU tensors its wrappers take the plain PyTorch versions
-without launching (or building) any kernel, and its entry points refuse to
-run without a card unless the caller asks for the CPU."""
+PIL, no TensorFlow, no orbax and nothing of the JAX package (every module,
+the data readers, the host I/O library's bindings, augmentors, loaders,
+checkpoints and their bridges, config, the train, evaluate, extract_flow
+and ckpt_tool CLIs and evaluation included), on CPU tensors its wrappers
+take the plain PyTorch versions without launching (or building) any
+kernel, and its entry points refuse to run without a card unless the
+caller asks for the CPU."""
 import os
 import subprocess
 import sys
@@ -29,7 +31,10 @@ import flow_supervisor_tpu_torch.data.datasets, flow_supervisor_tpu_torch.data.p
 import flow_supervisor_tpu_torch.metrics, flow_supervisor_tpu_torch.utils.warm_start
 import flow_supervisor_tpu_torch.submission, flow_supervisor_tpu_torch.data.augment
 import flow_supervisor_tpu_torch.data.synthetic, flow_supervisor_tpu_torch.training.checkpoint
-import flow_supervisor_tpu_torch.train
+import flow_supervisor_tpu_torch.train, flow_supervisor_tpu_torch.evaluate
+import flow_supervisor_tpu_torch.ckpt_tool, flow_supervisor_tpu_torch.tf_bundle
+import flow_supervisor_tpu_torch.utils.viz, flow_supervisor_tpu_torch.data.native
+import flow_supervisor_tpu_torch.convert
 g = torch.Generator().manual_seed(0)
 model = RAFT(RAFTConfig(iters=2, lookup_backend=BACKEND, **MODEL_KW), generator=g)
 img = torch.rand(BATCH, 32, 48, 3, generator=g)
@@ -49,7 +54,8 @@ _LAUNCHES = """[corr_plane.launches, conv3x3.launches, norm.stats_launches,
     norm.vector_launches]"""
 N_KERNELS = 13  # eleven kernels' counters, the conv's tensor-core body, the norm's vector body
 _LEAKED = """sorted(m for m in sys.modules if m.split(".")[0] in (
-    "jax", "flax", "flow_supervisor_tpu", "cv2", "optax", "orbax", "yaml", "PIL"))"""
+    "jax", "flax", "flow_supervisor_tpu", "cv2", "optax", "orbax", "yaml", "PIL",
+    "tensorflow"))"""
 _CPU_FORWARD = _CPU_FORWARD.replace("LAUNCHES", _LAUNCHES).replace("LEAKED", _LEAKED)
 
 _CPU_STEP = """
@@ -196,11 +202,13 @@ def test_cpu_unsup_baseline_and_smurf_steps_import_no_jax_and_launch_nothing(mod
 
 def test_no_source_file_imports_jax():
     """No file of the port, nor chip_smoke.py, imports jax, flax, yaml, cv2,
-    PIL or the JAX package."""
+    PIL, TensorFlow, orbax or the JAX package."""
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG):
-        paths += [os.path.join(root, n) for n in files if n.endswith((".py", ".cu", ".cuh"))]
+        paths += [os.path.join(root, n) for n in files
+                  if n.endswith((".py", ".cu", ".cuh", ".cc"))]
     assert os.path.join(PKG, "models", "gma.py") in paths
+    assert os.path.join(PKG, "native", "fst_io.cc") in paths
     offenders = []
     for path in paths:
         with open(path) as f:
@@ -208,7 +216,8 @@ def test_no_source_file_imports_jax():
                 s = line.strip()
                 if s.startswith(("import jax", "from jax", "import flax", "from flax",
                                  "import yaml", "from yaml", "import cv2", "from cv2",
-                                 "import PIL", "from PIL",
+                                 "import PIL", "from PIL", "import tensorflow",
+                                 "from tensorflow", "import orbax", "from orbax",
                                  "from flow_supervisor_tpu.", "import flow_supervisor_tpu.",
                                  "from flow_supervisor_tpu import")):
                     offenders.append(f"{path}: {s}")
@@ -257,8 +266,8 @@ def test_cpu_cli_step_imports_no_jax_and_launches_nothing(tmp_path):
 
 def test_extract_flow_requires_a_cuda_device(tmp_path):
     proc = _run(
-        "from flow_supervisor_tpu_torch.extract_flow import main; "
-        f"main(['--source_dir', {str(tmp_path)!r}, '--target_dir', {str(tmp_path)!r}])"
+        "import sys; from flow_supervisor_tpu_torch.extract_flow import main; "
+        f"sys.exit(main(['--source_dirs', {str(tmp_path)!r}, '--target_dirs', {str(tmp_path)!r}]))"
     )
     import torch
 
@@ -268,11 +277,21 @@ def test_extract_flow_requires_a_cuda_device(tmp_path):
     assert "needs a CUDA device" in proc.stderr
 
 
-@pytest.mark.parametrize("entry", ["profile_forward", "train", "train_cli"])
+_CLIS = {  # module -> its arguments; each also runs with --device cpu
+    "evaluate": lambda d: [d, "--eval_iters", "1"],
+    "extract_flow": lambda d: ["--source_dirs", d, "--target_dirs", d],
+    "ckpt_tool": lambda d: ["list", d],
+}
+
+
+@pytest.mark.parametrize("entry", ["profile_forward", "train", "train_cli", "evaluate_cli",
+                                   "extract_flow_cli", "ckpt_tool_cli"])
 def test_entry_points_require_a_cuda_device(entry, tmp_path):
     """Without a card, profile_forward raises, train raises unless the
-    caller passes device='cpu', and the train CLI exits non-zero unless
-    given --device cpu."""
+    caller passes device='cpu', and the train, evaluate, extract_flow and
+    ckpt_tool CLIs exit non-zero unless given --device cpu (with it, the
+    evaluate CLI fails on the empty directory's missing args.yaml, the other
+    two run)."""
     import torch
 
     if torch.cuda.is_available():
@@ -283,6 +302,17 @@ def test_entry_points_require_a_cuda_device(entry, tmp_path):
     elif entry == "train_cli":
         code = ("import sys; from flow_supervisor_tpu_torch.train import main; "
                 f"sys.exit(main([{str(tmp_path)!r}, '--num_steps', '1']))")
+    elif entry.endswith("_cli"):
+        module = entry[: -len("_cli")]
+        args = _CLIS[module](str(tmp_path))
+        code = (f"import sys; from flow_supervisor_tpu_torch.{module} import main; "
+                "sys.exit(main(ARGS))")
+        on_cpu = _run(code.replace("ARGS", repr(args + ["--device", "cpu"])))
+        if module == "evaluate":
+            assert on_cpu.returncode != 0 and "args.yaml" in on_cpu.stderr
+        else:
+            assert on_cpu.returncode == 0, on_cpu.stderr
+        code = code.replace("ARGS", repr(args))
     else:
         code = ("from flow_supervisor_tpu_torch.config import ExperimentConfig, ModelCfg; "
                 "from flow_supervisor_tpu_torch.training.loop import train; "

@@ -10,7 +10,8 @@ reader off: it scales .ppm by 1/255 where cv2 divides).
 Limits as in tests/test_torch_port_augment.py: images within 1e-5, flows
 within 1e-4 px, valid masks and crop offsets exactly. Then the Prefetcher
 (errors raised by the consumer's next(), the end of a finite stream, close)
-and a JPEG frame's error through the davis_unsup loader."""
+and a refused (progressive) JPEG frame's error through the davis_unsup
+loader."""
 import importlib
 import inspect
 import re
@@ -195,14 +196,16 @@ def test_prefetcher_ends_a_finite_stream_and_closes():
 @pytest.mark.parametrize("workers", [0, 2])
 def test_jpeg_frame_error_reaches_the_loader(tmp_path, monkeypatch, workers):
     """davis_unsup lists JPEG frames: the record lists equal the JAX
-    package's, and the first next() of the port's loader raises the
-    reader's error (no skipped record, no empty batch)."""
+    package's, and with progressive JPEG frames (which the decoder refuses)
+    the first next() of the port's loader raises the reader's error (no
+    skipped record, no empty batch)."""
     root = tmp_path / "datasets"
     scene = root / "DAVIS/JPEGImages/480p/bear"
     scene.mkdir(parents=True)
     rng = np.random.default_rng(0)
     for i in range(3):
-        cv2.imwrite(str(scene / f"{i:05d}.jpg"), rng.integers(0, 256, (48, 64, 3)).astype(np.uint8))
+        cv2.imwrite(str(scene / f"{i:05d}.jpg"), rng.integers(0, 256, (48, 64, 3)).astype(np.uint8),
+                    [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     _point_both_at(root, monkeypatch)
     try:
         got, _ = ppipeline.stage_records("davis_unsup")
@@ -212,7 +215,7 @@ def test_jpeg_frame_error_reaches_the_loader(tmp_path, monkeypatch, workers):
         loader = ppipeline.fetch_dataloader(pconfig.TrainCfg(
             stage="davis_unsup", image_size=(24, 40), full_size=(40, 56), batch_size=1,
             loader_workers=workers))
-        with pytest.raises(ValueError, match="JPEG"):
+        with pytest.raises(ValueError, match="progressive JPEG"):
             next(loader)
         loader.close()
     finally:
