@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's RAFT inference path, its evaluation path,
 its three train steps (Baseline, Unsup, flow-supervisor semi with and
-without the teacher SMURF loss), its GMA and small models, its
+without the teacher SMURF loss) through every kernel lookup, with and
+without per-iteration remat, and data-parallel, its GMA and small models, its
 training-data path through the train CLI, its entry points (the evaluate,
 extract_flow and ckpt_tool CLIs over JPEG frames and a Sintel tree), and
 the two kernels that no model path reaches (K5, K11) on one NVIDIA GPU.
@@ -95,6 +96,24 @@ each printing one JSON line per check or configuration:
    K2 launch of a step must run the conv's tensor-core body. Beside K8's and
    K9's times, the share of their (level, tile) pairs that took the tile
    path; every K3 / K4 launch of a step must run the norm's vector body;
+   train_rest (run after train_main): K12 (corr_plane_bwd, the plane and
+   pallas lookups' backward) against its plain version at the recipe's
+   lookup grids (50x90, 46x96, 54x128) and the main path's 56x128, radius 4
+   and 3, fp32 and bf16 cotangents and planes (the plain bits; fp32 within
+   1e-5 of the largest |d_plane|, bf16 within one ulp of the fp32 value);
+   one fp32 semi step through plane and through pallas on the card against
+   the CPU at phase 5's limits; the Sintel semi recipe's step through plane
+   and pallas as in train_main (K1 or K10 72 and K12 36 times a step), beside
+   train_main's fused one,
+   K12 timed on its lookups against its plain version and the library's
+   ``grid_sampler_2d_backward``; the fused step with and without
+   per-iteration remat (step ms, peak memory; one fp32 step's gradients
+   with remat against those without at phase 5's limits); data parallelism
+   (``parallel.dryrun``): a world of 1 over NCCL equal to the one-process
+   step bit for bit, a world of 2 over gloo on the one card (semi with the
+   teacher SMURF loss, Unsup, chairs Baseline with unfrozen batch norm)
+   within ``dryrun.LIMITS``, and the chairs Baseline's world of 2 with
+   cuDNN's convs (the one-card training path) within its cuDNN limit;
 7. gma_small: the GMA model (the DAVIS recipe's: one head, content
    similarity) and the small model (4 levels at radius 3, bilinear
    upsampling), every GMA aggregator's gamma at 0.5 in the checks and
@@ -149,7 +168,8 @@ each printing one JSON line per check or configuration:
 Then it prints K2's and K5's device time per fnet stage shape beside
 ``F.conv2d``'s, a JSON line of the kernels (launches in their configuration's
 main-path run, max error, kernel, plain and library ms per forward (K8/K9:
-per train step; K5: per forward's fnet stage convs; K11: per 12 lookups),
+per train step; K12: per plane-lookup semi step; K5: per forward's fnet stage
+convs; K11: per 12 lookups),
 and the least time the card could take for the same work; K1 and K6-K9
 also their launches at radius 3 in phase 7's main-path runs, their largest
 bf16 error there, and K8 / K9 their ms per small Baseline step) and last
@@ -203,6 +223,10 @@ SOURCES = {
                      "flow_supervisor_tpu/kernels/conv3x3.py:59"),
     "corr_lookup_volume": ("flow_supervisor_tpu_torch/csrc/corr_lookup.cu",
                            "flow_supervisor_tpu/kernels/corr_lookup.py:40"),
+    # K12 replaces no Pallas kernel: the XLA custom VJP of K1 (and of K10,
+    # corr_lookup_v2.py:260), both through corr_fused.lookup_vjp_dvols
+    "corr_plane_bwd": ("flow_supervisor_tpu_torch/csrc/corr_plane_bwd.cu",
+                       "flow_supervisor_tpu/kernels/corr_plane.py:497"),
 }
 # the Sintel flow-supervisor recipe (train.sh): B=1, a 400x720 supervised and
 # a 368x768 unsupervised crop of 432x1024 frames, 12 student and 12 teacher
@@ -297,6 +321,26 @@ R3_K6_K7_CASES = (("smooth", 1, 128), ("uniform", 1, 128), ("mixed", 2, 128), ("
                   ("smooth", 1, 36))
 R3_BWD_CASES = (("smooth", 1, 128), ("uniform", 1, 128), ("mixed", 2, 128), ("smooth", 8, 128),
                 ("smooth", 2, 36))
+# phase 9, train_rest: the Sintel semi recipe (train.sh:13-20) through the
+# plane and pallas lookups, whose backward is K12 (corr_plane_bwd). A step
+# launches what the fused one does in the encoders, one K1 (plane) or K10
+# (pallas) per lookup (72) and one K12 per student lookup (sup 12, unsup 2 x
+# 12): the teacher's pyramid carries no gradient. The recipe's planes are
+# fp32 (ModelCfg.corr_dtype): K1's cotangent arrives in bf16 (the lookup's
+# output dtype), K10's in fp32.
+MODEL_RECIPES.update({
+    "semi_plane": (dict(RECIPE_MODEL, lookup_backend="plane"), RECIPE_TRAIN),
+    "semi_pallas": (dict(RECIPE_MODEL, lookup_backend="pallas"), RECIPE_TRAIN),
+})
+RECIPE_NAMES.update({"semi_plane": "semi sintel (train.sh), plane lookup",
+                     "semi_pallas": "semi sintel (train.sh), pallas lookup"})
+_PLANE_STEP = {"conv3x3_stats": 40, "norm_stats": 20, "norm_apply": 60, "corr_plane_bwd": 36}
+STEP_LAUNCHES.update({"semi_plane": {**_PLANE_STEP, "corr_plane": 72},
+                      "semi_pallas": {**_PLANE_STEP, "corr_window": 72}})
+# K12 against its plain version at the lookup grids of the recipe (the sup
+# and unsup crops, the teacher's frame) and of the main path's 448x1024
+K12_SHAPES = (("sup", (50, 90)), ("unsup", (46, 96)), ("teacher", (54, 128)),
+              ("main", (MAIN_HW[0] // 8, MAIN_HW[1] // 8)))
 # the train CLI on a tiny tree (48x64 frames): the GMA recipe's model type
 # and stage at 32x48 crops of 40x56 frames, 12 + 12 iterations, bf16
 GMA_CLI_FLAGS = ["--stage", "semi-davis_unsup-ctskh", "--model_type", "gma-semi",
@@ -401,7 +445,8 @@ HOME_CONFIG = {"corr_plane": ("plane", 1), "conv3x3_stats": ("plane", 1),
                "norm_stats": ("plane", 1), "norm_apply": ("plane", 1),
                "corr_fused_all": ("fused", 1), "corr_fused_level": ("fused", 8),
                "corr_window": ("pallas", 1), "bwd_df1": ("train", 1), "bwd_df2": ("train", 1),
-               "conv3x3_bare": ("own", 1), "corr_lookup_volume": ("own", 1)}
+               "conv3x3_bare": ("own", 1), "corr_lookup_volume": ("own", 1),
+               "corr_plane_bwd": ("train_rest", 1)}
 # fnet shapes at 448x1024 (B=1: the pair runs through fnet together) and how
 # many times one forward runs each kernel there
 CONV_SHAPES = [((2, 224, 512, 64), 64, 4), ((2, 112, 256, 96), 96, 3), ((2, 56, 128, 128), 128, 3)]
@@ -449,7 +494,8 @@ def launch_counts() -> dict:
             "corr_fused_level": corr_fused.level_launches,
             "corr_window": corr_lookup_v2.launches,
             "bwd_df1": corr_fused.bwd_df1_launches, "bwd_df2": corr_fused.bwd_df2_launches,
-            "conv3x3_bare": conv3x3.bare_launches, "corr_lookup_volume": corr_lookup.launches}
+            "conv3x3_bare": conv3x3.bare_launches, "corr_lookup_volume": corr_lookup.launches,
+            "corr_plane_bwd": corr_plane.bwd_launches}
 
 
 def reset_launch_counts() -> None:
@@ -462,6 +508,7 @@ def reset_launch_counts() -> None:
     corr_fused.all_launches = corr_fused.level_launches = corr_lookup_v2.launches = 0
     corr_fused.bwd_df1_launches = corr_fused.bwd_df2_launches = 0
     conv3x3.bare_launches = corr_lookup.launches = conv3x3.tc_launches = 0
+    corr_plane.bwd_launches = 0
 
 
 def check_tc_launches(where: str, want: int) -> int:
@@ -1073,24 +1120,32 @@ def phase_parity(dev):
             raise AssertionError(f"end-to-end parity failed: {res}")
 
 
+def window_grids(shapes, coords, dev):
+    """F.grid_sample grids [BQ, 2r+1, 2r+1, 2] of the windows at coords [BQ,
+    2] / 2^level in planes of shapes [(h2, w2)], laid out so that a sample's
+    output is dx-major (align_corners=True)."""
+    import torch
+
+    bq = coords.shape[0]
+    d = torch.arange(-RADIUS, RADIUS + 1, device=dev, dtype=torch.float32)
+    grids = []
+    for lvl, (h2, w2) in enumerate(shapes):
+        c = coords * (1.0 / 2 ** lvl)
+        gx = (c[:, 0, None, None] + d[None, :, None]).expand(bq, 2 * RADIUS + 1, 2 * RADIUS + 1)
+        gy = (c[:, 1, None, None] + d[None, None, :]).expand(bq, 2 * RADIUS + 1, 2 * RADIUS + 1)
+        grids.append(torch.stack([2 * gx / max(w2 - 1, 1) - 1, 2 * gy / max(h2 - 1, 1) - 1], -1))
+    return grids
+
+
 def grid_sample_library(planes, coords, dev):
     """RAFT's own sampler as one library call per level: F.grid_sample over
     [BQ, 1, h2, w2] fp32 copies of the planes [BQ, h2, w2] (a bf16 grid cannot
     hold the coords) at coords [BQ, 2] / 2^level, the grid laid out so that
     the output is dx-major. Returns the calls as one function."""
-    import torch
     import torch.nn.functional as F
 
-    bq = coords.shape[0]
-    d = torch.arange(-RADIUS, RADIUS + 1, device=dev, dtype=torch.float32)
-    p32, grids = [], []
-    for lvl, plane in enumerate(planes):
-        h2, w2 = plane.shape[1:]
-        c = coords * (1.0 / 2 ** lvl)
-        gx = (c[:, 0, None, None] + d[None, :, None]).expand(bq, 2 * RADIUS + 1, 2 * RADIUS + 1)
-        gy = (c[:, 1, None, None] + d[None, None, :]).expand(bq, 2 * RADIUS + 1, 2 * RADIUS + 1)
-        grids.append(torch.stack([2 * gx / max(w2 - 1, 1) - 1, 2 * gy / max(h2 - 1, 1) - 1], -1))
-        p32.append(plane.float()[:, None])
+    grids = window_grids([tuple(p.shape[1:]) for p in planes], coords, dev)
+    p32 = [plane.float()[:, None] for plane in planes]
 
     def library():
         return [F.grid_sample(pl, g, mode="bilinear", padding_mode="zeros", align_corners=True)
@@ -1712,14 +1767,11 @@ def timed(fn) -> float:
 
 
 def noise_bias(name: str, bn_train: bool = False) -> bool:
-    """A conv bias that a normalization by the batch's own statistics follows
-    (all but each encoder's last conv): in fnet (instance norm) and, with
-    unfrozen batch norm, in cnet. Its gradient is zero in exact arithmetic,
-    fp32 noise in practice."""
-    nets = ("fnet", "cnet") if bn_train else ("fnet",)
-    net = name.split(".")[0]
-    return net in nets and name.endswith(".bias") and not name.endswith(
-        (".norm1.bias", ".norm2.bias", ".downsample.1.bias")) and name != f"{net}.conv2.bias"
+    """A conv bias whose gradient is zero in exact arithmetic, fp32 noise in
+    practice (``parallel.dryrun.noise_bias``)."""
+    from flow_supervisor_tpu_torch.parallel.dryrun import noise_bias as rule
+
+    return rule(name, bn_train)
 
 
 def flow_label(b, h, w, gen):
@@ -1802,15 +1854,16 @@ def to_device(batch, device):
     return {k: v.to(device) for k, v in batch.items()}
 
 
-def step_outputs(cfg, weights, batch, device):
+def step_outputs(cfg, weights, batch, device, update_ckpt: bool = False):
     """One train step of cfg's model type from ``weights`` on ``device`` ->
     (logs, gradients, parameters after the step, parameters before, how far
-    the step moved each running batch-norm statistic), on the CPU."""
+    the step moved each running batch-norm statistic), on the CPU.
+    ``update_ckpt``: remat each refinement iteration."""
     from flow_supervisor_tpu_torch.training.loop import build_model, make_step
     from flow_supervisor_tpu_torch.training.optim import batchnorm_params, make_optimizer
     from flow_supervisor_tpu_torch.training.state import TrainState
 
-    model = build_model(cfg)
+    model = build_model(cfg, update_ckpt=update_ckpt)
     model.load_state_dict(weights)
     model.to(device)
     before = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
@@ -2078,6 +2131,248 @@ def phase_train_main(dev):
         del model, dev_batches
         torch.cuda.empty_cache()
     return got, times, semi_res
+
+
+def k12_checks(dev):
+    """K12 against its plain version (``ops.corr.lookup_vjp_dvols``) at
+    ``K12_SHAPES``, radius 4 and 3 (the small model's), four levels, coords
+    in, partly and far out of bounds: fp32 and bf16 cotangents (K10's and
+    K1's), fp32 and bf16 planes. Every result must be the plain version's
+    bits; against the fp32 value of the same cotangent, an fp32 result must
+    lie within 1e-5 of the largest |d_plane| and a bf16 one within one bf16
+    ulp. Returns (rows, the largest |error| against that fp32 value)."""
+    import torch
+
+    from flow_supervisor_tpu_torch.kernels import corr_plane
+    from flow_supervisor_tpu_torch.ops.corr import lookup_vjp_dvols
+
+    gen = torch.Generator().manual_seed(17)
+    rows, worst = [], 0.0
+    for name, (h8, w8) in K12_SHAPES:
+        shapes = [(-(-h8 // 2 ** lvl), -(-w8 // 2 ** lvl)) for lvl in range(LEVELS)]
+        for radius in (RADIUS, SMALL_RADIUS):
+            coords = check_coords(h8 * w8, h8, w8, gen, dev)
+            g32 = torch.randn(h8 * w8, LEVELS * (2 * radius + 1) ** 2, generator=gen).to(dev)
+            for g in (g32, g32.bfloat16()):
+                ref = lookup_vjp_dvols(g.float(), coords, shapes, radius, torch.float32)
+                largest = max(float(r.abs().max()) for r in ref)
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    what = f"K12 {name} {h8}x{w8} r={radius} g {g.dtype} out {out_dtype}"
+                    got = corr_plane.lookup_bwd(g, coords, shapes, radius, out_dtype)
+                    want = lookup_vjp_dvols(g, coords, shapes, radius, out_dtype)
+                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                        raise AssertionError(f"{what}: not the plain version's bits")
+                    if g.dtype == torch.float32 and out_dtype == torch.float32:
+                        err = max(check_close(what, a, b, 0.0, 1e-5 * largest)
+                                  for a, b in zip(got, ref))
+                    else:
+                        err = max(check_ulp(what, a, b, 0.0) for a, b in zip(got, ref))
+                    worst = max(worst, err)
+                    rows.append({"shape": name, "hw8": [h8, w8], "radius": radius,
+                                 "g_dtype": str(g.dtype), "out_dtype": str(out_dtype),
+                                 "plain_bits": True, "max_abs_err_vs_fp32": err,
+                                 "largest_abs": largest})
+                    del got, want
+                del ref
+    return rows, worst
+
+
+def k12_timing(model, batch_pair, dev, g_dtype):
+    """K12 against its plain version and the library's transposed sampler
+    (``grid_sampler_2d_backward``, one call a level) on the coords and plane
+    shapes of a semi step's last student lookups (``bwd_lookup_inputs``;
+    sup and unsup crops) and a random cotangent in ``g_dtype``: ms per step
+    (per-call device time x the step's calls), and the card's least time for
+    them: the d_plane written once, g and coords read once."""
+    import torch
+
+    from flow_supervisor_tpu_torch.kernels import corr_plane
+    from flow_supervisor_tpu_torch.ops.corr import lookup_vjp_dvols
+
+    gen = torch.Generator().manual_seed(18)
+    t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "per_call": {}}
+    t_bytes = t_ops = 0.0
+    for name, batch in zip(("sup", "unsup"), batch_pair):
+        calls = TRAIN_BWD_CALLS[name]
+        planes, coords = bwd_lookup_inputs(model, batch)
+        shapes = [tuple(p.shape[1:]) for p in planes]
+        out_dtype, bq = planes[0].dtype, coords.shape[0]
+        g = torch.randn(bq, LEVELS * K2, generator=gen).to(dev, g_dtype)
+        k, p = ab_ms(lambda: corr_plane.lookup_bwd(g, coords, shapes, RADIUS, out_dtype),
+                     lambda: lookup_vjp_dvols(g, coords, shapes, RADIUS, out_dtype))
+        grids = window_grids(shapes, coords, dev)
+        g_lv = [g[:, lvl * K2:(lvl + 1) * K2].float().reshape(bq, 1, 2 * RADIUS + 1, -1)
+                for lvl in range(LEVELS)]
+        p32 = [pl.float()[:, None] for pl in planes]
+
+        def library():
+            return [torch.ops.aten.grid_sampler_2d_backward(gl, pl, gr, 0, 0, True,
+                                                            [True, False])[0]
+                    for gl, pl, gr in zip(g_lv, p32, grids)]
+
+        lib_err = max(float((a[:, 0] - b.float()).abs().max()) for a, b in zip(
+            library(), lookup_vjp_dvols(g.float(), coords, shapes, RADIUS, torch.float32)))
+        lib = time_ms(library, device_only=True)
+        out_bytes = bq * sum(h * w for h, w in shapes) * planes[0].element_size()
+        nbytes = out_bytes + g.numel() * g.element_size() + coords.numel() * 4
+        # the transposed lerp: 4 products and 3 sums per support element, fp32
+        ops = bq * LEVELS * (2 * RADIUS + 2) ** 2 * COMBINE_FLOPS
+        tb, to = bound(nbytes, ops, torch.float32)
+        t["ms"] += calls * k
+        t["plain_ms"] += calls * p
+        t["library_ms"] += calls * lib
+        t["bound_ms"] += calls * max(tb, to)
+        t_bytes += calls * tb
+        t_ops += calls * to
+        t["per_call"][name] = {"queries": bq, "shapes": shapes, "calls_per_step": calls,
+                               "g_dtype": str(g_dtype), "out_dtype": str(out_dtype), "ms": k,
+                               "plain_ms": p, "library_ms": lib, "library_max_abs_err": lib_err,
+                               "bound_ms": max(tb, to), "bound_share": max(tb, to) / k,
+                               "bytes": nbytes, "ops": ops}
+        del planes, p32, grids, g_lv
+    t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    return t
+
+
+def remat_timing(dev, batches, update_ckpt: bool) -> dict:
+    """The Sintel semi recipe's step (bf16, the fused lookup) from the same
+    seed with and without per-iteration remat: step ms over
+    TRAIN_STEPS_TIMED steps by CUDA events after TRAIN_STEPS_MAIN warm-up
+    steps, and peak memory over the timed steps."""
+    import torch
+
+    from flow_supervisor_tpu_torch.config import ExperimentConfig, ModelCfg, TrainCfg
+    from flow_supervisor_tpu_torch.training.loop import build_model, make_step
+    from flow_supervisor_tpu_torch.training.optim import batchnorm_params, make_optimizer
+    from flow_supervisor_tpu_torch.training.state import TrainState
+
+    cfg = ExperimentConfig(ModelCfg(**RECIPE_MODEL, compute_dtype="bfloat16"),
+                           TrainCfg(**RECIPE_TRAIN, seed=7))
+    model = build_model(cfg, torch.Generator().manual_seed(7), update_ckpt=update_ckpt).to(dev)
+    state = TrainState.create(dict(model.named_parameters()),
+                              make_optimizer(cfg.train, batchnorm_params(model)))
+    step = make_step(model, cfg)
+    dev_batches = [to_device(b, dev) for b in batches]
+    for i in range(TRAIN_STEPS_MAIN):
+        state, log = step(state, dev_batches[i % len(dev_batches)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(TRAIN_STEPS_TIMED):
+        state, log = step(state, dev_batches[i % len(dev_batches)])
+    end.record()
+    end.synchronize()
+    log = {k: float(v) for k, v in log.items()}
+    if not all(math.isfinite(v) for v in log.values()):
+        raise AssertionError(f"remat={update_ckpt} semi step: non-finite log {log}")
+    res = {"update_ckpt": update_ckpt, "timed_steps": TRAIN_STEPS_TIMED,
+           "step_ms": start.elapsed_time(end) / TRAIN_STEPS_TIMED,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(), "last_log": log}
+    del model, state, dev_batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_rest(dev, semi_res):
+    """The rest of training: K12 against its plain version (``k12_checks``);
+    one fp32 semi step through plane and through pallas on the card against
+    the same step on the CPU (phase 5's limits); the Sintel semi recipe's
+    step at full width through plane and pallas (``train_main``: the main
+    path's launch counts over two steps, five timed steps, peak memory,
+    device time; K12 timed on its lookups) beside the fused one of
+    train_main (``semi_res``, on the same batches); the fused
+    step with and without per-iteration remat (``remat_timing``), and one
+    fp32 step's gradients with remat against those without it at phase 5's
+    limits; data parallelism on the card (``parallel.dryrun``): a world of 1
+    over NCCL (the plane lookup and no cuDNN: nothing sums in an order that
+    changes from run to run) equal to the
+    one-process step bit for bit, a world of 2 over gloo on the one card
+    (the semi step with the teacher SMURF loss, the Unsup step, and the
+    chairs Baseline with unfrozen batch norm) against one process on the
+    global batch within ``dryrun.LIMITS``, and the chairs Baseline's world of
+    2 with cuDNN's convs on both sides, the one-card training path, within
+    ``dryrun.CUDNN_GRAD_REL``. Returns (the plane step's main-path launch counts,
+    K12's times, K12's largest error)."""
+    import dataclasses
+
+    import torch
+
+    from flow_supervisor_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    rows, k12_err = k12_checks(dev)
+    emit({"phase": "train_rest", "ok": True, "k12_checks": rows, "max_abs_err": k12_err})
+
+    def backend_cfg(cfg, backend):
+        return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                                  lookup_backend=backend))
+
+    cpu = torch.device("cpu")
+    cfg, weights, batch = step_parity_setup("semi")
+    for backend in ("plane", "pallas"):
+        bcfg = backend_cfg(cfg, backend)
+        ref = step_outputs(bcfg, weights, batch, cpu)
+        run = step_outputs(bcfg, weights, batch, dev)
+        err = parity_errors(run, ref, cfg.train.lr)
+        res = {"phase": "train_rest", "check": "card_vs_cpu_step", "lookup_backend": backend,
+               "step": "semi", "crop_hw": [64, 96], "full_hw": [96, 128],
+               "iters": PARITY_ITERS, "dtype": "float32", "logs_cpu": ref[0],
+               "logs_gpu": run[0], **err, "ok": parity_ok(err)}
+        emit(res)
+        if not res["ok"]:
+            raise AssertionError(f"semi step through {backend}: card-vs-CPU parity failed: {res}")
+
+    gen = torch.Generator().manual_seed(7)
+    batches = [recipe_batches(TRAIN_SUP, TRAIN_UNSUP, TRAIN_FULL, gen, (16, 152), (32, 128)),
+               recipe_batches(TRAIN_SUP, TRAIN_UNSUP, TRAIN_FULL, gen, (24, 296), (56, 256))]
+    shapes = dict(batch=1, sup_hw=TRAIN_SUP, unsup_hw=TRAIN_UNSUP, full_hw=TRAIN_FULL,
+                  teacher_iters=ITERS)
+    plane_got = k12_times = None
+    for kind, backend, g_dtype in (("semi_plane", "plane", torch.bfloat16),
+                                   ("semi_pallas", "pallas", torch.float32)):
+        got, model, dev_batches, res = train_main(dev, kind, batches, **shapes)
+        res.update(phase="train_rest", lookup_backend=backend,
+                   k12=k12_timing(model, dev_batches[0], dev, g_dtype))
+        res["k12"]["launches"] = got["corr_plane_bwd"]
+        res["fused_step_of_train_main"] = {k: semi_res[k] for k in (
+            "step_ms", "peak_mem_bytes", "device_ms_per_step", "device_idle_share",
+            "launches_per_step_all", "by_category_ms_per_step")}
+        if kind == "semi_plane":
+            plane_got, k12_times = got, res["k12"]
+        emit(res)
+        del model, dev_batches
+        torch.cuda.empty_cache()
+
+    remat = [remat_timing(dev, batches, flag) for flag in (False, True)]
+    a = step_outputs(cfg, weights, batch, dev)
+    again = step_outputs(cfg, weights, batch, dev)
+    b = step_outputs(cfg, weights, batch, dev, update_ckpt=True)
+    err = parity_errors(b, a, cfg.train.lr)
+    spread = parity_errors(again, a, cfg.train.lr)
+    res = {"phase": "train_rest", "check": "remat", "step": "semi sintel (train.sh), fused",
+           "dtype": "bfloat16", "runs": remat,
+           "peak_mem_ratio": remat[1]["peak_mem_bytes"] / remat[0]["peak_mem_bytes"],
+           "step_ms_ratio": remat[1]["step_ms"] / remat[0]["step_ms"],
+           "fp32_grads_remat_vs_plain": err, "fp32_grads_plain_vs_plain": spread,
+           "ok": parity_ok(err)}
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"remat step gradients: {res}")
+
+    one = dryrun.run_dryrun(1, ("baseline",), "cuda", backend="nccl", lookup_backend="plane")
+    two = dryrun.run_dryrun(2, ("semi", "unsup", "baseline"), "cuda", backend="gloo")
+    two_cudnn = dryrun.run_dryrun(2, ("baseline",), "cuda", backend="gloo", cudnn=True)
+    res = {"phase": "train_rest", "check": "data_parallel", "world_1_nccl": one,
+           "world_2_gloo": two, "world_2_gloo_cudnn": two_cudnn,
+           "ok": all(e["bit_for_bit"] for e in one.values())
+           and all(e["ok"] for e in (*two.values(), *two_cudnn.values()))}
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"data parallelism on the card: {res}")
+    emit({"phase": "train_rest", "ok": True, "seconds": time.perf_counter() - t_phase})
+    return plane_got, {"corr_plane_bwd": k12_times}, k12_err
 
 
 def metrics_rows(run: str) -> list:
@@ -2732,6 +3027,8 @@ def main() -> int:
     phase_evaluate(dev)
     phase_train_parity(dev)
     launches[("train", 1)], times[("train", 1)], semi_res = phase_train_main(dev)
+    launches[("train_rest", 1)], times[("train_rest", 1)], errs["corr_plane_bwd"] = \
+        phase_train_rest(dev, semi_res)
     r3_launches, r3_times, r3_errs = phase_gma_small(dev)
     phase_entry(dev)
     phase_train_data(dev, semi_res)
@@ -2743,6 +3040,10 @@ def main() -> int:
         if home[0] == "train":
             config = {"train": "semi sintel recipe", "batch": 1, "steps": TRAIN_STEPS_MAIN,
                       "launches_per_step": TRAIN_LAUNCHES[name]}
+        elif home[0] == "train_rest":
+            config = {"train": "semi sintel recipe, plane lookup", "batch": 1,
+                      "steps": TRAIN_STEPS_MAIN,
+                      "launches_per_step": STEP_LAUNCHES["semi_plane"][name]}
         elif home[0] == "own":
             config = {"own_function": "conv3x3_fused" if name == "conv3x3_bare"
                       else "corr_pyramid_lookup_pallas", "hw": list(MAIN_HW)}

@@ -107,8 +107,8 @@ class TrainCfg:
     do_rotation: bool = False
     max_rotation: float = 10.0
     pretrained_ckpt: str = ""  # a checkpoint directory to start from
-    data_parallel: int = -1  # -1 = all local devices; the port trains on one
-    dcn_parallel: int = 1
+    data_parallel: int = -1  # -1 = all local devices (training.loop.world_of)
+    dcn_parallel: int = 1  # nodes of one flat data-parallel world
     loader_workers: int = 4  # threads decoding and augmenting per stream (0/1: serial)
     log_every: int = 100
     # a torch.profiler trace of trace_steps steps, after two warm-up steps,

@@ -17,6 +17,12 @@ order, and each example's augmentation drawn from its own generator, seeded
 from the pipeline's generator, for any worker count. Worker threads share
 the interpreter with the caller: ``_unfilter`` (the PNG decode) and the
 augmentors' smaller numpy steps hold its lock.
+
+Under data parallelism each rank builds only its rows of every global batch
+(``shard=(rank, world)``: rows [rank * B / world, (rank + 1) * B / world)).
+Every rank draws the whole stream's epoch orders and example seeds, so the
+union of the ranks' batches is the one-process batch; a semi stream shards
+its sup and unsup batches alike.
 """
 from __future__ import annotations
 
@@ -93,12 +99,21 @@ def _iter_batches(pipe, workers: int) -> Iterator[dict]:
     bounded in-flight window (``Pool.imap``'s feeder would consume an
     infinite job generator without bound). Epoch order and per-example seeds
     always come from ``pipe.rng``, so the stream is the same for any worker
-    count."""
+    count; ``pipe.shard`` picks this rank's rows of each global batch."""
+    rank, world = pipe.shard
+    if pipe.batch_size % world != 0:
+        raise ValueError(f"batch_size {pipe.batch_size} does not divide over {world} ranks")
+    rows = pipe.batch_size // world
+    lo = rank * rows
 
     def jobs():
+        i = 0
         while True:
             for idx in pipe.rng.permutation(len(pipe.records)):
-                yield int(idx), int(pipe.rng.integers(0, 2**63))
+                seed = int(pipe.rng.integers(0, 2**63))
+                if lo <= i % pipe.batch_size < lo + rows:
+                    yield int(idx), seed
+                i += 1
 
     def make_example(job):
         idx, seed = job
@@ -108,7 +123,7 @@ def _iter_batches(pipe, workers: int) -> Iterator[dict]:
         batch = []
         for job in jobs():
             batch.append(make_example(job))
-            if len(batch) == pipe.batch_size:
+            if len(batch) == rows:
                 yield _stack(batch)
                 batch = []
         return
@@ -122,7 +137,7 @@ def _iter_batches(pipe, workers: int) -> Iterator[dict]:
             while len(inflight) < workers * 2:
                 inflight.append(pool.apply_async(make_example, (next(job_iter),)))
             batch.append(inflight.popleft().get())
-            if len(batch) == pipe.batch_size:
+            if len(batch) == rows:
                 yield _stack(batch)
                 batch = []
     finally:
@@ -135,13 +150,14 @@ class SupervisedPipeline:
 
     def __init__(self, records, crop_size, min_scale, max_scale, do_flip,
                  batch_size, seed=1234, augment=True, do_rotation=False,
-                 max_rotation=10.0, workers=0):
+                 max_rotation=10.0, workers=0, shard=(0, 1)):
         if not records:
             raise ValueError("SupervisedPipeline: empty dataset")
         self.records = list(records)
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
         self.workers = workers
+        self.shard = shard
         self.augment = augment
         self.dense_aug = FlowAugmentor(
             crop_size, min_scale, max_scale, do_flip,
@@ -178,13 +194,14 @@ class UnsupPipeline:
 
     def __init__(self, records, crop_size, min_scale, max_scale, do_flip,
                  batch_size, full_size, seed=1234, do_rotation=False,
-                 max_rotation=10.0, workers=0):
+                 max_rotation=10.0, workers=0, shard=(0, 1)):
         if not records:
             raise ValueError("UnsupPipeline: empty dataset")
         self.records = list(records)
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
         self.workers = workers
+        self.shard = shard
         self.aug = UnsupAugmentor(
             crop_size, min_scale, max_scale, do_flip, full_size=full_size,
             do_rotation=do_rotation, max_rotation=max_rotation,
@@ -217,13 +234,14 @@ class MultiFramePipeline:
     unlabeled triplets). No train step reads these batches."""
 
     def __init__(self, records, crop_size, min_scale, max_scale, do_flip,
-                 batch_size, seed=1234, workers=0):
+                 batch_size, seed=1234, workers=0, shard=(0, 1)):
         if not records:
             raise ValueError("MultiFramePipeline: empty dataset")
         self.records = list(records)
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
         self.workers = workers
+        self.shard = shard
         self.aug = MultiFrameAugmentor(crop_size, min_scale, max_scale, do_flip)
 
     def _example_rng(self, record, rng) -> dict:
@@ -412,21 +430,24 @@ def stage_records(stage: str):
     raise NotImplementedError(f"unknown stage: {stage}")
 
 
-def fetch_dataloader(train_cfg, seed: Optional[int] = None):
+def fetch_dataloader(train_cfg, seed: Optional[int] = None, shard=(0, 1)):
     """A ``Prefetcher`` of batches for TrainCfg.stage.
 
     ``semi-<unsup_stage>-<sup_stage>`` yields (sup_batch, unsup_batch), both
     through the UnsupAugmentor (the sup stream at image_size, the unsup one
     at unsup_image_size with seed + 1); ``*unsup*`` stages the UnsupAugmentor
-    dict; ``sintel_multiframe`` frame triplets; the rest supervised batches."""
+    dict; ``sintel_multiframe`` frame triplets; the rest supervised batches.
+    ``shard``: (rank, world), this rank's rows of every global batch of
+    ``batch_size``."""
     seed = train_cfg.seed if seed is None else seed
     stage = train_cfg.stage
     workers = train_cfg.loader_workers
-    rot = dict(do_rotation=train_cfg.do_rotation, max_rotation=train_cfg.max_rotation)
+    rot = dict(do_rotation=train_cfg.do_rotation, max_rotation=train_cfg.max_rotation,
+               shard=tuple(shard))
     if stage == "sintel_multiframe":
         records, aug = stage_records(stage)
         pipe = MultiFramePipeline(records, train_cfg.image_size, batch_size=train_cfg.batch_size,
-                                  seed=seed, workers=workers, **aug)
+                                  seed=seed, workers=workers, shard=tuple(shard), **aug)
         return Prefetcher(iter(pipe))
     if stage.startswith("semi-"):
         _, unsup_stage, sup_stage = stage.split("-", 2)

@@ -56,6 +56,8 @@ SIGNATURES = {
     "fst_corr_window_lookup": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     # plane, h2, w2, coords, out, bq, radius, in_dtype, stream
     "fst_corr_window": [_P, _I, _I, _P, _P, _I, _I, _I, _P],
+    # d_planes[L], h2[L], w2[L], levels, coords, g, bq, radius, g_dtype, out_dtype, stream
+    "fst_corr_plane_bwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     # x, w_hwio, bias, y, partials, stats, B, H, W, C, Cout, dtype, eps, stream
     "fst_conv3x3_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # x, w_hwio, bias, y, B, H, W, C, Cout, dtype, relu, stream

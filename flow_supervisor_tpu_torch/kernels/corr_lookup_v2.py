@@ -13,6 +13,10 @@ levels, fp32 out (csrc/corr_window.cu in window mode, replaces
 ``level_support``, the TPU kernel's own output for one level, is the same
 body in support mode.
 
+``corr_pyramid_lookup_v2`` is differentiable in the planes, as JAX's custom
+VJP makes it: the backward is K12 (``corr_plane.lookup_bwd``, fp32
+cotangent in, the planes' dtype out), coords get no gradient.
+
 The wrappers take the plain PyTorch versions (``ops.corr.window_support``, a
 gather with a validity mask, and ``combine_support``) only for CPU tensors;
 for CUDA tensors they launch the kernel or raise. ``launches`` counts kernel
@@ -24,6 +28,7 @@ import torch
 
 from flow_supervisor_tpu_torch.kernels import _build
 from flow_supervisor_tpu_torch.kernels.corr_plane import (
+    PlaneLookup,
     _check_args,
     corr_lookup_plain,
     level_arrays,
@@ -66,16 +71,22 @@ def corr_pyramid_lookup_v2(
     planes: list[torch.Tensor], coords: torch.Tensor, radius: int = 4
 ) -> torch.Tensor:
     """K10 in window mode: coords [B, h1, w1, 2] -> [B, h1, w1, L * (2r+1)^2]
-    fp32 (dx-major per level), one launch for all levels."""
-    global launches
+    fp32 (dx-major per level), one launch for all levels; differentiable in
+    the planes (backward K12)."""
     b, h1, w1, _ = coords.shape
     flat = coords.reshape(b * h1 * w1, 2).float().contiguous()
     _check_args(planes, flat, radius)
     if not window_fits(len(planes), radius):
         raise ValueError(f"corr_pyramid_lookup_v2: radius {radius} at {len(planes)} levels "
                          f"needs more shared memory than a block has")
+    out = PlaneLookup.apply(_lookup_k10, flat, radius, torch.float32, *planes)
+    return out.reshape(b, h1, w1, -1)
+
+
+def _lookup_k10(planes, flat, radius, out_dtype):
+    global launches
     if not _build.uses_kernel("corr_pyramid_lookup_v2", flat, *planes):
-        return corr_lookup_plain(planes, flat, radius).reshape(b, h1, w1, -1)
+        return corr_lookup_plain(planes, flat, radius)
     bq, nl = flat.shape[0], len(planes)
     out = torch.empty((bq, nl * (2 * radius + 1) ** 2), dtype=torch.float32, device=flat.device)
     with torch.cuda.device(flat.device):
@@ -85,4 +96,4 @@ def corr_pyramid_lookup_v2(
         )
     _build.check(rc, "corr_pyramid_lookup_v2")
     launches += 1
-    return out.reshape(b, h1, w1, -1)
+    return out

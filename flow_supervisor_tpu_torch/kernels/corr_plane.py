@@ -10,8 +10,18 @@ out-of-bounds taps reading 0, channels dx-major: [BQ, L * (2r+1)^2] in the
 requested dtype (csrc/corr_plane.cu, replaces ``_plane_kernel``; the body
 is csrc/window.cuh's, shared with K10 and K11).
 
-The wrapper takes the plain PyTorch version only for CPU tensors; for CUDA
-tensors it launches the kernel or raises. ``launches`` counts kernel launches.
+The lookup is differentiable in the planes (``corr_lookup`` is a
+``torch.autograd.Function``, JAX's custom VJP ``_lookup``): its backward is
+``lookup_bwd``, kernel K12 (csrc/corr_plane_bwd.cu), which writes every
+query's plane cotangent, zero but at its support taps, and gives coords no
+gradient (they are detached at every call site). Nothing plane-sized is kept
+for the backward: only coords and the planes' shapes and dtype. The plane
+build's ``torch.matmul`` carries the cotangent on to the feature maps.
+K10's lookup (kernels/corr_lookup_v2.py) takes the same backward.
+
+The wrappers take the plain PyTorch versions only for CPU tensors; for CUDA
+tensors they launch the kernel or raise. ``launches`` counts K1's launches,
+``bwd_launches`` K12's.
 """
 from __future__ import annotations
 
@@ -23,10 +33,12 @@ from flow_supervisor_tpu_torch.kernels import _build
 from flow_supervisor_tpu_torch.ops.corr import (
     build_corr_pyramid_from_fmaps,
     combine_support,
+    lookup_vjp_dvols,
     window_support,
 )
 
 launches = 0
+bwd_launches = 0
 
 MAX_LEVELS = 8  # csrc/window.cuh kMaxLevels
 WARPS = 8  # csrc/window.cuh kWarps: queries per block
@@ -96,13 +108,81 @@ def _check_args(planes, coords, radius):
         raise ValueError(f"corr_lookup: radius must be >= 0, got {radius}")
 
 
+def bwd_fits(levels: int, radius: int) -> bool:
+    """Whether K12 finds room for its blocks' support cotangents: 8 warps x
+    levels x (2r+2)^2 fp32."""
+    s = 2 * radius + 2
+    return WARPS * levels * s * s * 4 <= SMEM_OPTIN_BYTES
+
+
+def lookup_bwd(
+    g: torch.Tensor, coords: torch.Tensor, shapes, radius: int = 4, out_dtype=torch.float32,
+) -> list[torch.Tensor]:
+    """K12: the planes' cotangent of a window lookup. g [BQ, L * (2r+1)^2]
+    (fp32 or bf16, dx-major), coords [BQ, 2] fp32 at level 0, shapes [(h2,
+    w2)] per level -> d_plane [BQ, h2, w2] per level in out_dtype (the plain
+    version is ``ops.corr.lookup_vjp_dvols``, whose dtype rule it follows)."""
+    global bwd_launches
+    nl, k2 = len(shapes), (2 * radius + 1) ** 2
+    if not 1 <= nl <= MAX_LEVELS:
+        raise ValueError(f"lookup_bwd: 1..{MAX_LEVELS} levels, got {nl}")
+    if radius < 0 or not bwd_fits(nl, radius):
+        raise ValueError(f"lookup_bwd: radius {radius} at {nl} levels does not fit a block")
+    if coords.dim() != 2 or coords.shape[1] != 2 or coords.dtype != torch.float32 \
+            or not coords.is_contiguous() or coords.shape[0] == 0:
+        raise ValueError(f"lookup_bwd: coords must be contiguous float32 [BQ, 2], got "
+                         f"{coords.dtype} {tuple(coords.shape)}")
+    bq = coords.shape[0]
+    if g.shape != (bq, nl * k2) or not g.is_contiguous():
+        raise ValueError(f"lookup_bwd: g must be contiguous [{bq}, {nl * k2}], got "
+                         f"{tuple(g.shape)}")
+    _build.dtype_code(g)
+    if not _build.uses_kernel("lookup_bwd", coords, g):
+        return lookup_vjp_dvols(g, coords, shapes, radius, out_dtype)
+    outs = [torch.empty((bq, h2, w2), dtype=out_dtype, device=g.device) for h2, w2 in shapes]
+    with torch.cuda.device(g.device):
+        rc = _build.lib().fst_corr_plane_bwd(
+            *level_arrays(outs), nl, coords.data_ptr(), g.data_ptr(), bq, radius,
+            _build.dtype_code(g), _build.dtype_code(outs[0]), _build.stream_of(g),
+        )
+    _build.check(rc, "lookup_bwd")
+    bwd_launches += 1
+    return outs
+
+
+class PlaneLookup(torch.autograd.Function):
+    """A window lookup differentiable in its planes: ``forward_fn(planes,
+    coords, radius, out_dtype)`` forward (K1 or K10), K12 backward; coords
+    get no gradient. Residuals: coords, the planes' shapes and dtype."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, coords, radius, out_dtype, *planes):
+        ctx.save_for_backward(coords)
+        ctx.radius = radius
+        ctx.shapes = [tuple(p.shape[1:]) for p in planes]
+        ctx.plane_dtype = planes[0].dtype
+        return forward_fn(list(planes), coords, radius, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (coords,) = ctx.saved_tensors
+        g = g.reshape(coords.shape[0], -1).contiguous()
+        d_planes = lookup_bwd(g, coords, ctx.shapes, ctx.radius, ctx.plane_dtype)
+        return (None, None, None, None, *d_planes)
+
+
 def corr_lookup(
     planes: list[torch.Tensor], coords: torch.Tensor, radius: int = 4,
     out_dtype=torch.float32,
 ) -> torch.Tensor:
-    """K1: window lookup over all levels -> [BQ, L * (2r+1)^2] in out_dtype."""
-    global launches
+    """K1: window lookup over all levels -> [BQ, L * (2r+1)^2] in out_dtype;
+    differentiable in the planes (backward K12)."""
     _check_args(planes, coords, radius)
+    return PlaneLookup.apply(_lookup_k1, coords, radius, out_dtype, *planes)
+
+
+def _lookup_k1(planes, coords, radius, out_dtype):
+    global launches
     if not _build.uses_kernel("corr_lookup", coords, *planes):
         return corr_lookup_plain(planes, coords, radius, out_dtype)
     bq, nl = coords.shape[0], len(planes)

@@ -8,11 +8,18 @@ flow_supervisor_tpu/losses/photometric.py).
 - distance: (|x| + 0.01)^0.4;
 - the mask is zeroed on a 3-pixel (PATCH // 2) border, and the normalizer is
   sum(mask + 1e-6) over all elements, i.e. sum(mask) + 1e-6 * numel.
+
+The normalizer counts the mask over the whole batch. In a data-parallel
+world each rank divides its shard's sum by the mean of the ranks'
+normalizers (``mesh.global_mean``; the mask is detached), so the average of
+the ranks' losses, and of their gradients, is the global batch's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from flow_supervisor_tpu_torch.parallel import mesh
 
 PATCH = 7  # census neighbourhood
 
@@ -54,4 +61,4 @@ def census_loss(image_a: torch.Tensor, image_b: torch.Tensor, mask: torch.Tensor
     hamming = soft_hamming(census_transform(image_a), census_transform(image_b))
     padded_mask = zero_mask_border(mask)
     diff = abs_robust_loss(hamming) * padded_mask
-    return torch.sum(diff) / torch.sum(padded_mask.detach() + 1e-6)
+    return torch.sum(diff) / mesh.global_mean(torch.sum(padded_mask.detach() + 1e-6))

@@ -5,6 +5,10 @@ student's mask INVERTED (supervise where the student is inconsistent and the
 teacher consistent), the teacher's flow and mask cropped from full-frame
 coordinates to the student's window, robust_l1 error with the teacher flow
 and the combined mask detached.
+
+Data parallelism needs nothing here: each loss is a mean over all its
+elements, and with equal shards the average of the ranks' means (the
+gradients' all-reduce) is the global batch's mean.
 """
 from __future__ import annotations
 

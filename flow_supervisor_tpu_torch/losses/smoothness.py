@@ -3,6 +3,10 @@ flow_supervisor_tpu/losses/smoothness.py): first / second-order flow
 gradients under the exponential image-gradient edge weight
 exp(-mean|150 g|) of the recipes, with robust_l1 on the flow gradients,
 averaged over the x and y terms.
+
+Data parallelism needs nothing here: each loss is a mean over all its
+elements, and with equal shards the average of the ranks' means (the
+gradients' all-reduce) is the global batch's mean.
 """
 from __future__ import annotations
 

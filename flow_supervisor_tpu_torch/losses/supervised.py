@@ -10,6 +10,10 @@ Penalties are elementwise per flow channel, then averaged over everything
 each multiplied by the mask ``valid`` (if given) and by ||gt||_2 < 400 px.
 ``sequence_loss`` = sum_i gamma^(N-1-i) * loss_i over predictions stacked
 [iters, B, H, W, 2].
+
+Data parallelism needs nothing here: each loss is a mean over all its
+elements, and with equal shards the average of the ranks' means (the
+gradients' all-reduce) is the global batch's mean.
 """
 from __future__ import annotations
 

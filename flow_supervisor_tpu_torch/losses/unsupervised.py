@@ -13,6 +13,10 @@ flow_supervisor_tpu/losses/unsupervised.py). Flow channels are (x, y).
   leave the crop still supervise;
 - ``unsupervised_sequence_loss`` ('unsup_per_update'): the same loss at each
   update, total_k = loss_k(i) + total_k * gamma over the iterations i.
+
+Under data parallelism the census term takes a global normalizer
+(losses/photometric.py); the smoothness and self-supervision terms are
+means, exact under equal shards; the occlusion masks are per pixel.
 """
 from __future__ import annotations
 

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from flow_supervisor_tpu_torch.kernels.norm import instance_norm
+from flow_supervisor_tpu_torch.parallel import mesh
 
 
 def _pair(k):
@@ -112,7 +113,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     batch's mean and biased variance and moves the running statistics toward
     them: running = 0.99 running + 0.01 batch, with the BIASED variance,
     where ``nn.BatchNorm2d`` moves running_var toward the unbiased one (a
-    factor n / (n - 1) apart). In eval mode it is ``nn.BatchNorm2d``'s."""
+    factor n / (n - 1) apart). In eval mode it is ``nn.BatchNorm2d``'s.
+
+    The batch is the global one, as in JAX's step over the sharded batch: the
+    mean and then the biased variance are fp32 sums over every rank's rows
+    (``mesh.all_reduce_sum``, differentiable, the identity in a world of 1),
+    so each rank normalizes by, and moves its running statistics toward, the
+    same global values. One formula serves every world size."""
 
     MOMENTUM = 0.99
 
@@ -122,12 +129,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        xf = x.float()
+        n = xf.numel() // xf.shape[1] * mesh.world_size()
+        mean = mesh.all_reduce_sum(xf.sum(dim=(0, 2, 3))) / n
+        centred = xf - mean[None, :, None, None]
+        var = mesh.all_reduce_sum((centred * centred).sum(dim=(0, 2, 3))) / n
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
             m = self.MOMENTUM
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
             self.running_var.mul_(m).add_(var, alpha=1.0 - m)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        scale = self.weight.float() * torch.rsqrt(var + self.eps)
+        y = torch.addcmul(self.bias.float()[None, :, None, None], centred,
+                          scale[None, :, None, None])
+        return y.to(x.dtype)
 
 
 class GroupNorm(nn.GroupNorm):

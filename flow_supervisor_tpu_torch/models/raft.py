@@ -25,13 +25,14 @@ Three model families, as in the JAX package's ``RAFT.setup``:
 package (channels dx-major in every backend):
 
 - ``"plane"`` (default): per-level planes [B*h8*w8, h2, w2] in
-  ``corr_dtype``, looked up by K1 (kernels/corr_plane.py);
+  ``corr_dtype``, looked up by K1 (kernels/corr_plane.py), differentiable
+  in the planes through K12;
 - ``"fused"``: volume-free, the pyramid is f1 and the pooled f2 in ``dtype``;
   K6 (all levels, B == 1) or K7 (per level, B > 1) compute each query's
   support correlations at every lookup (kernels/corr_fused.py);
 - ``"pallas"``: the same planes as ``"plane"``; K10 looks up every level's
   window in one launch, fp32 out as in JAX, cast to ``dtype``
-  (kernels/corr_lookup_v2.py);
+  (kernels/corr_lookup_v2.py); its backward is K12 too;
 - ``"einsum"``: the volume pyramid [B, h8, w8, h2, w2] in ``corr_dtype``,
   looked up by one-hot matrix products in plain PyTorch (ops/corr.py
   ``corr_pyramid_lookup``);
@@ -55,7 +56,13 @@ Training (the flow supervisor, counterpart of ``semi_forward``): with
 ``semi_forward`` runs the student on the crop and the teacher, continuing
 from the student's final state zero-padded into the full frame, over a
 pyramid, context and state that carry no gradient (computed under
-``torch.no_grad``, where JAX has ``stop_gradient``). ``freeze_bn`` keeps
+``torch.no_grad``, where JAX has ``stop_gradient``). Every lookup backend
+trains. ``update_ckpt`` rematerializes each refinement iteration, as JAX's
+``nn.remat`` of the update block: every call of the update block or the
+teacher head that records a graph runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, which keeps only
+its inputs and runs it again in the backward (the blocks have no batch norm
+and no dropout, so the second run gives the same values). ``freeze_bn`` keeps
 cnet's batch norm on its running statistics in training mode too; without
 it, training mode normalizes by batch statistics and updates the running
 ones, as flax does (models/layers.py ``BatchNorm2d``). ``train_forward``
@@ -67,6 +74,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from flow_supervisor_tpu_torch.kernels.corr_fused import (
@@ -118,6 +126,7 @@ class RAFTConfig:
     position_and_content: bool = False  # GMA: the content term plus the position term
     teacher: bool = False  # add the flow-supervisor teacher update block
     teacher_iters: int = 12
+    update_ckpt: bool = False  # remat each refinement iteration (update block, teacher head)
     freeze_bn: bool = False  # batch norm on running statistics in training too
 
     @property
@@ -140,8 +149,6 @@ class RAFTConfig:
 
 
 LOOKUP_BACKENDS = ("plane", "fused", "pallas", "einsum", "zero", "auto")
-# the backends without a backward: their kernels' backward passes are not ported
-_INFERENCE_ONLY = ("plane", "pallas")
 
 
 def resolve_lookup_backend(backend: str, device) -> str:
@@ -153,8 +160,7 @@ def resolve_lookup_backend(backend: str, device) -> str:
     and einsum elsewhere, so on a GPU it would take einsum. The port's rule
     takes fused there: on the H100 it needs less device time than the plane
     lookup (7.97 against 9.01 ms per 448x1024 forward at B=1, 41.6 against
-    47.8 at B=8), holds no volume (2.25 GB less at B=8), and is the only
-    kernel backend with a backward (PERF.md)."""
+    47.8 at B=8) and holds no volume (2.25 GB less at B=8; PERF.md)."""
     if backend != "auto":
         return backend
     return "fused" if torch.device(device).type == "cuda" else "einsum"
@@ -292,6 +298,11 @@ class RAFT(nn.Module):
         mask = (torch.zeros((b, h8, w8, 576), dtype=cfg.dtype, device=coords1.device)
                 if cfg.convex_upsampling else None)
         extra = (attention,) if self.gma else ()
+        if cfg.update_ckpt and torch.is_grad_enabled():
+            plain_block = block
+
+            def block(*args):  # JAX's nn.remat(block)
+                return torch.utils.checkpoint.checkpoint(plain_block, *args, use_reentrant=False)
 
         def upsample(flow_low, mask):
             if mask is None:  # bilinear x8 with scaling (no mask head)
@@ -336,18 +347,7 @@ class RAFT(nn.Module):
     def train_forward(self, image1: torch.Tensor, image2: torch.Tensor) -> dict[str, torch.Tensor]:
         """The standard forward with gradient, every iteration upsampled (the
         Baseline step's forward; JAX's ``__call__(train=True)``)."""
-        self._check_trainable()
         return self._flow(image1, image2)
-
-    def _check_trainable(self) -> None:
-        """Training runs through the lookups with a backward: fused (K8/K9),
-        einsum and zero (autograd), and so auto."""
-        if torch.is_grad_enabled() and self.cfg.lookup_backend in _INFERENCE_ONLY:
-            raise NotImplementedError(
-                f"training through lookup_backend={self.cfg.lookup_backend!r}: the plane and "
-                "pallas kernels' backward passes are not ported yet (ROADMAP Queue 2); the "
-                "fused, einsum, zero and auto lookups train"
-            )
 
     def _flow(self, image1, image2, flow_init=None, iters=None, final_flow_only=False):
         iters = self.cfg.iters if iters is None else iters
@@ -427,7 +427,6 @@ class RAFT(nn.Module):
         target."""
         if not self.cfg.teacher:
             raise ValueError("semi_forward needs RAFTConfig(teacher=True)")
-        self._check_trainable()
         fmap1, fmap2 = self.features(image1, image2)
         pyramid = self.build_corr(fmap1, fmap2)
         with torch.no_grad():
@@ -459,7 +458,6 @@ class RAFT(nn.Module):
         flow_low, and flow_up_bw / flow_low_bw from the backward pyramid (the
         fmap arguments swapped) and image2's context. ``final_flow_only``:
         upsample only the last iteration (for callers that read only it)."""
-        self._check_trainable()
         b, h, w, _ = image1.shape
         h8, w8 = downsample_shape(h), downsample_shape(w)
         fmap1, fmap2 = self.features(image1, image2)

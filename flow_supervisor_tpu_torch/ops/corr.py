@@ -18,6 +18,10 @@
   bilinear combine (the plain versions behind the plane, fused and pallas
   lookup kernels); ``support_cotangent`` is the combine's transpose (the
   plain version behind the fused lookup's backward kernels).
+- ``lookup_vjp_dvols``: the cotangent of the window lookup with respect to
+  the per-query planes (JAX's ``corr_fused.lookup_vjp_dvols``, the backward
+  of the plane and pallas lookups): each query's support cotangent written
+  at its support position in a zeroed plane row (the plain version of K12).
 """
 from __future__ import annotations
 
@@ -240,3 +244,36 @@ def combine_support(support: torch.Tensor, coords: torch.Tensor, radius: int) ->
         + fy * fx * p[:, 1:, 1:]
     )  # [BQ, dy, dx]
     return out.transpose(1, 2).reshape(-1, k * k)
+
+
+def lookup_vjp_dvols(
+    g: torch.Tensor, coords: torch.Tensor, shapes, radius: int, out_dtype=None,
+) -> list[torch.Tensor]:
+    """Cotangent of a window lookup with respect to its per-query planes:
+    g [..., L * (2r+1)^2] (dx-major, the lookup's output cotangent), coords
+    [..., 2] (x, y) at level 0, shapes [(h2, w2)] per level -> d_plane [BQ,
+    h2, w2] per level, BQ the queries of g.
+
+    A query's row is zero but at its support taps inside the plane, which
+    hold its support cotangent (``support_cotangent``, fp32) at coords / 2^l;
+    taps outside the plane drop out, as the forward's mask reads them as 0.
+    The taps of one query are distinct positions, so nothing is summed. The
+    dtype rule is JAX's (``corr_fused.lookup_vjp_dvols``): a bf16 g gives the
+    cotangent rounded to bf16, an fp32 g keeps it in fp32; the result is
+    then cast to ``out_dtype`` (the planes' dtype; default the cotangent's)."""
+    k2 = (2 * radius + 1) ** 2
+    sup = 2 * radius + 2
+    flat_c = coords.reshape(-1, 2).float()
+    gq = g.reshape(flat_c.shape[0], len(shapes), k2)
+    vol_dtype = torch.bfloat16 if g.dtype == torch.bfloat16 else torch.float32
+    out = []
+    for lvl, (h2, w2) in enumerate(shapes):
+        c = flat_c * (1.0 / 2.0 ** lvl)
+        d_sup = support_cotangent(gq[:, lvl], c, radius).to(vol_dtype)
+        idx, valid = support_index(c, radius, h2, w2)
+        # taps outside the plane go to one spare column, dropped after
+        idx = torch.where(valid.reshape(idx.shape), idx, h2 * w2)
+        row = torch.zeros((flat_c.shape[0], h2 * w2 + 1), dtype=vol_dtype, device=g.device)
+        row.scatter_(1, idx, d_sup.reshape(-1, sup * sup))
+        out.append(row[:, : h2 * w2].reshape(-1, h2, w2).to(out_dtype or vol_dtype))
+    return out

@@ -25,6 +25,7 @@ from flow_supervisor_tpu_torch.ops.coords import coords_grid, downsample_shape
 CATEGORIES = (
     # K1 (plane), K10 (pallas) and K11 run one body, csrc/window.cuh's
     ("K1 / K10 / K11 window lookup", ("window_kernel",)),
+    ("K12 plane lookup backward", ("plane_bwd_kernel",)),
     ("K6 corr_fused_all", ("corr_fused_all_kernel",)),
     ("K7 corr_fused_level", ("corr_fused_level_kernel",)),
     ("K8 bwd_df1", ("bwd_df1_kernel",)),

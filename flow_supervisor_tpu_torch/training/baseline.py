@@ -7,7 +7,9 @@ batch statistics and updates its running statistics in the forward.
 
 Batch contract (tensors on the model's device): {'image1', 'image2': [B, H,
 W, 3] in [0, 1], 'flow': [B, H, W, 2], 'valid': [B, H, W, 1] (optional)}.
-The log holds loss and epe.
+The log holds loss and epe. In a data-parallel world (parallel/mesh.py)
+the gradients and the log are averaged over the ranks before the optimizer
+step; a no-op in a world of 1.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from flow_supervisor_tpu_torch.losses.supervised import sequence_loss
 from flow_supervisor_tpu_torch.metrics import epe_per_image
+from flow_supervisor_tpu_torch.parallel import mesh
 from flow_supervisor_tpu_torch.training.state import TrainState, grads_of
 
 
@@ -28,9 +31,9 @@ def make_train_step(model, loss_type: str = "robust", gamma: float = 0.8,
         model.train()
         out = model.train_forward(batch["image1"], batch["image2"])
         loss = sequence_loss(out["flow_up"], batch["flow"], batch.get("valid"), gamma, loss_type)
-        grads = grads_of(loss, named)
-        log = {"loss": loss.detach(), "epe": torch.mean(epe_per_image(
-            out["flow_up"][-1].detach(), batch["flow"], batch.get("valid")))}
+        grads = mesh.all_reduce_grads(grads_of(loss, named))
+        log = mesh.mean_log({"loss": loss.detach(), "epe": torch.mean(epe_per_image(
+            out["flow_up"][-1].detach(), batch["flow"], batch.get("valid")))})
         if debug_grads:
             log["_grads"] = grads
         return state.apply_gradients(grads), log

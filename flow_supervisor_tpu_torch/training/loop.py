@@ -23,11 +23,21 @@ directory's latest one, restoring the optimizer state and the step. That
 differs from the JAX loop, which rebuilds the optimizer state on resume, so
 its schedules and Adam's bias correction start again from 0. In both
 packages the data stream starts again from the seed. Training runs through
-the lookups with a backward: fused, einsum, zero and auto. It runs on the
-card unless the caller passes ``device="cpu"``.
+every lookup backend. It runs on the card unless the caller passes
+``device="cpu"``.
+
+Data parallelism (parallel/mesh.py): ``train`` runs in the world its caller
+has joined (the train CLI spawns the ranks, or torchrun starts them), each
+rank on its own device with its rows of every global batch in ``data_iter``
+(``fetch_dataloader(..., shard=(rank, world))``); the steps average the
+gradients and the logs. The global batch must divide the world. Every rank
+restores the same checkpoint; rank 0 alone writes ``args.yaml``,
+``metrics.jsonl`` and the checkpoints and runs the standing validation,
+while the others wait at a barrier.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -38,6 +48,7 @@ import torch
 from flow_supervisor_tpu_torch.config import ExperimentConfig
 from flow_supervisor_tpu_torch.evaluation import make_train_validator
 from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
+from flow_supervisor_tpu_torch.parallel import mesh
 from flow_supervisor_tpu_torch.training import checkpoint as ckpt
 from flow_supervisor_tpu_torch.training.baseline import make_train_step
 from flow_supervisor_tpu_torch.training.optim import batchnorm_params, make_optimizer
@@ -53,12 +64,15 @@ def frozen_bn(cfg: ExperimentConfig) -> bool:
     return cfg.train.freeze_bn or cfg.train.stage not in ("chairs", "chairs_unsup")
 
 
-def build_model(cfg: ExperimentConfig, generator: Optional[torch.Generator] = None) -> RAFT:
+def build_model(cfg: ExperimentConfig, generator: Optional[torch.Generator] = None,
+                update_ckpt: bool = False) -> RAFT:
     """The port's RAFT for a config, random weights from ``generator``;
     ``teacher``, ``freeze_bn``, GMA and the correlation levels and radius
     resolved as in the JAX package (``RAFTConfig.resolved``: ModelCfg's
     corr_levels / corr_radius are not read). Parameters are fp32 masters,
-    cast to the compute dtype at each conv call."""
+    cast to the compute dtype at each conv call. ``update_ckpt``: remat
+    each refinement iteration (``RAFTConfig.update_ckpt``; ModelCfg has no
+    such field, as in JAX, where only the train benchmark sets it)."""
     mc = cfg.model
     if mc.dropout != 0.0:
         # the JAX step passes no "dropout" rng, so flax's dropout fails on an
@@ -77,6 +91,7 @@ def build_model(cfg: ExperimentConfig, generator: Optional[torch.Generator] = No
         dtype=_DTYPES[mc.compute_dtype],
         corr_dtype=_DTYPES[mc.corr_dtype],
         lookup_backend=mc.lookup_backend,
+        update_ckpt=update_ckpt,
     ).resolved()
     return RAFT(rcfg, generator=generator, param_dtype=torch.float32)
 
@@ -103,9 +118,21 @@ def make_step(model, cfg: ExperimentConfig, debug_grads: bool = False):
                            debug_grads=debug_grads)
 
 
-def check_config(cfg: ExperimentConfig) -> None:
+def world_of(cfg: ExperimentConfig, device_type: str) -> int:
+    """The data-parallel world a run of cfg spans on ``device_type``
+    (``mesh.plan_world``): its local ranks are the cards on CUDA, and
+    ``data_parallel`` processes on the CPU, which counts as one device."""
+    n_local = torch.cuda.device_count() if device_type == "cuda" else 1
+    tc = cfg.train
+    if device_type == "cpu" and tc.data_parallel > 0:
+        n_local = tc.data_parallel
+    return mesh.plan_world(tc.batch_size, tc.data_parallel, tc.dcn_parallel, n_local)
+
+
+def check_config(cfg: ExperimentConfig, device_type: str = "cpu") -> None:
     """Refuse, before any work, a config the port does not train: another
-    model type, the frame-triplet stage, more than one device."""
+    model type, the frame-triplet stage, a batch that does not divide the
+    nodes' world (``world_of``)."""
     if cfg.model.model_type not in MODEL_TYPES:
         raise NotImplementedError(
             f"model_type {cfg.model.model_type!r}: the port trains {MODEL_TYPES}"
@@ -116,11 +143,7 @@ def check_config(cfg: ExperimentConfig) -> None:
             "no train step reads them (the JAX package hands them to a step that reads "
             "batch['flow'] and fails there)"
         )
-    if cfg.train.data_parallel > 1 or cfg.train.dcn_parallel > 1:
-        raise NotImplementedError(
-            f"data_parallel={cfg.train.data_parallel}, dcn_parallel={cfg.train.dcn_parallel}: "
-            "the port trains on one device (parallelism is ROADMAP Queue 1, item 9)"
-        )
+    world_of(cfg, device_type)
 
 
 def _restore_or_init(model: RAFT, cfg: ExperimentConfig):
@@ -191,13 +214,18 @@ def train(
     the standing validation (default: the validators ``make_train_validator``
     builds from the stage's datasets), run once before the first step of a
     new run unless ``skip_validation_at_start``. ``device``: the card
-    (default; raises if there is none) or ``"cpu"``."""
-    check_config(cfg)
+    (default; raises if there is none) or ``"cpu"``; a rank's own device in
+    a data-parallel world, whose rank 0 alone writes files and validates."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("train needs a CUDA device; none is available (pass device='cpu')")
         device = torch.device("cuda")
     device = torch.device(device)
+    check_config(cfg, device.type)
+    world, main = mesh.world_size(), mesh.is_main()
+    if cfg.train.batch_size % world != 0:
+        raise ValueError(f"batch_size={cfg.train.batch_size} does not divide over the world's "
+                         f"{world} ranks")
     model = build_model(cfg, torch.Generator().manual_seed(cfg.train.seed))
     start_step, opt_state = _restore_or_init(model, cfg)
     model.to(device)
@@ -209,22 +237,26 @@ def train(
                              "optimizer state for this model's trained parameters")
         state.step, state.opt_state = start_step, ckpt.optimizer_state_to(opt_state, device)
     step_fn = make_step(model, cfg)
-    if validate_fn is None:
+    if validate_fn is None and main:
         validate_fn = make_train_validator(cfg, model)
-    cfg.save_yaml()
+    if main:
+        cfg.save_yaml()
     total = cfg.train.num_steps if max_steps is None else max_steps
-    # --trace_dir: trace_steps steps after two warm-up steps
-    trace = _Trace(cfg.train.trace_dir, device) if cfg.train.trace_dir else None
+    # --trace_dir: trace_steps steps after two warm-up steps, on rank 0
+    trace = _Trace(cfg.train.trace_dir, device) if cfg.train.trace_dir and main else None
     last, since = time.perf_counter(), 0
-    with open(os.path.join(cfg.ckpt_dir, "metrics.jsonl"), "a") as f:
+    with open(os.path.join(cfg.ckpt_dir, "metrics.jsonl"), "a") if main else \
+            contextlib.nullcontext() as f:
 
         def run_validation(at_step: int) -> None:
-            if validate_fn is None:
+            if not main or validate_fn is None:
+                mesh.barrier()
                 return
             val = {k: float(v) for k, v in validate_fn(at_step, state).items()}
             f.write(json.dumps({"step": at_step, "prefix": "val", **val}) + "\n")
             f.flush()
             print(f"val {at_step}: " + ", ".join(f"{k}={v:.4f}" for k, v in val.items()))
+            mesh.barrier()
 
         if start_step == 0 and not cfg.train.skip_validation_at_start:
             run_validation(0)
@@ -238,7 +270,7 @@ def train(
                      else _to(batch, device))
             state, metrics = step_fn(state, batch)
             since += 1
-            if (step_i + 1) % cfg.train.log_every == 0:
+            if (step_i + 1) % cfg.train.log_every == 0 and main:
                 row = {k: float(v) for k, v in metrics.items()}  # waits for the device
                 now = time.perf_counter()
                 row["steps_per_sec"] = since / max(now - last, 1e-9)
@@ -247,7 +279,9 @@ def train(
                 f.flush()
                 print(f"step {step_i + 1}: " + ", ".join(f"{k}={v:.4f}" for k, v in row.items()))
             if (step_i + 1) % cfg.train.val_step == 0 or step_i + 1 == total:
-                ckpt.save_checkpoint(cfg.ckpt_dir, step_i + 1, model.state_dict(), state.opt_state)
+                if main:
+                    ckpt.save_checkpoint(cfg.ckpt_dir, step_i + 1, model.state_dict(),
+                                         state.opt_state)
                 run_validation(step_i + 1)
         if trace is not None and trace.running:  # the run ended inside the trace window
             trace.stop()

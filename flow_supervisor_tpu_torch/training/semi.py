@@ -9,7 +9,7 @@ flow_supervisor_tpu/training/semi.py ``make_semi_train_step``).
   teacher's final prediction without gradient (lfr_loss_type, gamma =
   loss_decay_rate, x lfr_weight); with ``lfr_sum_reduction`` the branch's
   loss is multiplied by B*H*W of the student crop (the reference's pixel-sum
-  gradient). Without the teacher SMURF loss the teacher runs without
+  gradient; B the global batch under data parallelism). Without the teacher SMURF loss the teacher runs without
   gradient there: only its final prediction is used, as a target.
 - teacher SMURF (``teacher_smurf_weight > 0``): the unsupervised loss
   (census, smoothness, occlusion; self-supervision forced to 0, as the
@@ -21,6 +21,10 @@ flow_supervisor_tpu/training/semi.py ``make_semi_train_step``).
 - Each branch has its own backward pass; the gradients merge per variable,
   g = sup_weight * g_sup + unsup_weight * g_unsup, a variable that a branch
   does not reach counting zero from it.
+- In a data-parallel world (parallel/mesh.py) the merged gradients and the
+  log are averaged over the ranks before the optimizer step (a no-op in a
+  world of 1); every other reduction is a mean, exact under equal shards,
+  or the census loss's global normalizer.
 
 Batch contract (tensors on the model's device):
   sup:   {'image1','image2','orig_image1','orig_image2','crop_yx','flow','valid'}
@@ -40,6 +44,7 @@ from flow_supervisor_tpu_torch.losses.unsupervised import (
     unsupervised_sequence_loss,
 )
 from flow_supervisor_tpu_torch.metrics import epe_per_image
+from flow_supervisor_tpu_torch.parallel import mesh
 from flow_supervisor_tpu_torch.training.state import TrainState, grads_of
 from flow_supervisor_tpu_torch.training.unsup import smurf_images
 
@@ -109,7 +114,7 @@ def make_semi_train_step(
             total = total + lfr
             if mc.lfr_sum_reduction:
                 b, h, w = batch["image1"].shape[0:3]
-                total = total * float(b * h * w)
+                total = total * float(b * mesh.world_size() * h * w)
         log["unsup_loss"] = total
         return total, log
 
@@ -133,6 +138,8 @@ def make_semi_train_step(
                 grads = {k: mc.unsup_weight * g for k, g in g_unsup.items()}
             else:
                 grads = {k: grads[k] + mc.unsup_weight * g for k, g in g_unsup.items()}
+        grads = mesh.all_reduce_grads(grads)
+        log = mesh.mean_log(log)
         if debug_grads:
             log["_grads"] = grads
         return state.apply_gradients(grads), log

@@ -14,6 +14,8 @@ branch.
 Batch contract (tensors on the model's device): {'image1', 'image2': [B, h,
 w, 3] crops, 'orig_image1', 'orig_image2': [B, H, W, 3] frames, 'crop_yx':
 int [B, 2] (y, x)}, and optionally {'flow', 'valid'} for the epe metric only.
+In a data-parallel world (parallel/mesh.py) the gradients and the log are
+averaged over the ranks before the optimizer step; a no-op in a world of 1.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from flow_supervisor_tpu_torch.losses.unsupervised import (
 )
 from flow_supervisor_tpu_torch.metrics import epe_per_image
 from flow_supervisor_tpu_torch.ops.pad import crop_bboxes
+from flow_supervisor_tpu_torch.parallel import mesh
 from flow_supervisor_tpu_torch.training.state import TrainState, grads_of
 
 
@@ -54,11 +57,12 @@ def make_unsup_train_step(model, model_cfg, debug_grads: bool = False):
             teacher_flow_fw=teacher["flow_up"][-1], teacher_flow_bw=teacher["flow_up_bw"][-1],
             full_size_images=full, crop_yx=batch["crop_yx"],
         )
-        grads = grads_of(loss, named)
+        grads = mesh.all_reduce_grads(grads_of(loss, named))
         log = {"loss": loss.detach(), **{k: v.detach() for k, v in terms.items()}}
         if "flow" in batch:
             log["epe"] = torch.mean(epe_per_image(
                 out["flow_up"][-1].detach(), batch["flow"], batch.get("valid")))
+        log = mesh.mean_log(log)
         if debug_grads:
             log["_grads"] = grads
         return state.apply_gradients(grads), log

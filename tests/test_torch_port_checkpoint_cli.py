@@ -17,8 +17,9 @@ training/checkpoint.py, training/loop.py, train.py) on the CPU.
 - GMA: the DAVIS recipe's model type and stage (``--model_type gma-semi
   --stage semi-davis_unsup-ctskh``, the synthetic tree's DAVIS frames are
   baseline JPEG) for 2 steps, then a resume to 4.
-- The refusals: ``--stage sintel_multiframe`` and ``--data_parallel 2``
-  before the first step.
+- The refusals: ``--stage sintel_multiframe`` and a batch that does not
+  divide the data-parallel world (``--dcn_parallel 2`` at batch 1, JAX's
+  assert) before the first step.
 - ``trace_dir``: a torch.profiler trace after two warm-up steps."""
 import dataclasses
 import importlib
@@ -286,13 +287,13 @@ def test_cli_trains_and_resumes_the_gma_davis_recipe(tree, tmp_path):
 
 @pytest.mark.parametrize("flags,error", [
     (["--stage", "sintel_multiframe"], ValueError),
-    (["--data_parallel", "2"], NotImplementedError),
-], ids=["sintel_multiframe", "data_parallel"])
+    (["--dcn_parallel", "2"], ValueError),
+], ids=["sintel_multiframe", "dcn_world_does_not_divide"])
 def test_cli_refuses_before_the_first_step(tree, tmp_path, flags, error):
     from flow_supervisor_tpu_torch.train import main
 
     run = str(tmp_path / "run")
-    with pytest.raises(error, match="frame triplets|Queue 1, item 9"):
+    with pytest.raises(error, match="frame triplets|must divide evenly over the world"):
         main([run] + SMALL + ["--num_steps", "1"] + flags)
     assert ckpt.latest_step(run) is None
     assert not os.path.exists(os.path.join(run, "metrics.jsonl"))

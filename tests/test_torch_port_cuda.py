@@ -776,3 +776,62 @@ def test_cuda_gma_and_small_forwards_match_the_cpu(cuda, model_kw, backend):
     assert corr_fused.all_launches + corr_plane.launches - n == 4
     d = (gpu - cpu).abs()
     assert torch.isfinite(gpu).all() and float(d.mean()) < 1e-3 and float(d.max()) < 2e-2
+
+
+def _k12_case(dev, levels, radius, g_dtype, seed, b=2, h8=5, w8=9):
+    """A window cotangent g [BQ, L * (2r+1)^2] at coords in, partly and far
+    out of bounds (B=2 at 5x9 by default: 90 queries)."""
+    _, _, coords = _lookup_inputs(b=b, h8=h8, w8=w8, c=1, seed=seed)
+    coords[0, 0, 0] = (1e9, -1e9)
+    coords[-1, -1, -1] = (-3e38, 3e38)
+    c = torch.from_numpy(coords).reshape(-1, 2).to(dev)
+    rng = np.random.default_rng(seed + 1)
+    g = torch.from_numpy(rng.normal(0, 1, (c.shape[0], levels * (2 * radius + 1) ** 2))
+                         .astype(np.float32)).to(dev, g_dtype)
+    shapes = [(-(-h8 // 2 ** lvl), -(-w8 // 2 ** lvl)) for lvl in range(levels)]
+    return g, c, shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("levels,radius", [(1, 4), (4, 4), (4, 3), (2, 1), (4, 0)])
+def test_cuda_k12_gives_the_plain_bits(cuda, g_dtype, out_dtype, levels, radius):
+    """K12 (the plane lookups' backward) writes every plane row whole, equal
+    to ``lookup_vjp_dvols`` bit for bit (no FMA in the transposed lerp), at
+    the ragged 5x9 (scalar rows) and 8x16 (16-byte rows) shapes."""
+    from flow_supervisor_tpu_torch.ops.corr import lookup_vjp_dvols
+
+    for b, h8, w8 in ((2, 5, 9), (1, 8, 16)):
+        g, c, shapes = _k12_case(cuda, levels, radius, g_dtype, seed=40 + radius, b=b, h8=h8, w8=w8)
+        before = corr_plane.bwd_launches
+        got = corr_plane.lookup_bwd(g, c, shapes, radius, out_dtype)
+        want = lookup_vjp_dvols(g, c, shapes, radius, out_dtype)
+        assert corr_plane.bwd_launches == before + 1
+        for gl, wl, (h2, w2) in zip(got, want, shapes):
+            assert gl.shape == (c.shape[0], h2, w2) and gl.dtype == out_dtype
+            assert torch.equal(gl, wl)
+        assert all(torch.all(gl[0] == 0) for gl in got)  # the far query's rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["plane", "pallas"])
+def test_cuda_plane_lookup_grads_match_the_cpu(cuda, backend):
+    """d f1 / d f2 through the plane build and each backend's lookup (K1 or
+    K10 forward, K12 backward) on the card against the same on the CPU."""
+    from flow_supervisor_tpu_torch.kernels.corr_lookup_v2 import corr_pyramid_lookup_v2
+
+    f1, f2, coords = _lookup_inputs(b=2, h8=5, w8=9, c=64, seed=50)
+    g = np.random.default_rng(51).normal(0, 1, (2, 5, 9, 4 * 81)).astype(np.float32)
+    res = []
+    for dev in (torch.device("cpu"), cuda):
+        a = torch.from_numpy(f1).to(dev).requires_grad_()
+        b = torch.from_numpy(f2).to(dev).requires_grad_()
+        planes = corr_plane.build_plane_pyramid(a, b, 4)
+        c = torch.from_numpy(coords).to(dev)
+        out = (corr_plane.corr_pyramid_lookup_plane(planes, c, R) if backend == "plane"
+               else corr_pyramid_lookup_v2(planes, c, R))
+        res.append([t.cpu() for t in torch.autograd.grad(
+            (out * torch.from_numpy(g).to(dev)).sum(), (a, b))])
+    for got, want in zip(res[1], res[0]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)

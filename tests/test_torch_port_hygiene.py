@@ -35,6 +35,7 @@ import flow_supervisor_tpu_torch.train, flow_supervisor_tpu_torch.evaluate
 import flow_supervisor_tpu_torch.ckpt_tool, flow_supervisor_tpu_torch.tf_bundle
 import flow_supervisor_tpu_torch.utils.viz, flow_supervisor_tpu_torch.data.native
 import flow_supervisor_tpu_torch.convert
+import flow_supervisor_tpu_torch.parallel.mesh, flow_supervisor_tpu_torch.parallel.dryrun
 g = torch.Generator().manual_seed(0)
 model = RAFT(RAFTConfig(iters=2, lookup_backend=BACKEND, **MODEL_KW), generator=g)
 img = torch.rand(BATCH, 32, 48, 3, generator=g)
@@ -51,8 +52,8 @@ _LAUNCHES = """[corr_plane.launches, conv3x3.launches, norm.stats_launches,
     norm.apply_launches, conv3x3.bare_launches, corr_fused.all_launches,
     corr_fused.level_launches, corr_fused.bwd_df1_launches, corr_fused.bwd_df2_launches,
     corr_lookup_v2.launches, corr_lookup.launches, conv3x3.tc_launches,
-    norm.vector_launches]"""
-N_KERNELS = 13  # eleven kernels' counters, the conv's tensor-core body, the norm's vector body
+    norm.vector_launches, corr_plane.bwd_launches]"""
+N_KERNELS = 14  # twelve kernels' counters, the conv's tensor-core body, the norm's vector body
 _LEAKED = """sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "flax", "flow_supervisor_tpu", "cv2", "optax", "orbax", "yaml", "PIL",
     "tensorflow"))"""

@@ -120,13 +120,19 @@ def test_run_pair_pads_runs_and_unpads(port_model, pair):
     np.testing.assert_array_equal(flow, full["flow_up"][-1, 0, 2:62, 3:93].numpy())
 
 
-def test_teacher_head_is_built_and_trains_only_through_fused():
+def test_teacher_head_is_built_and_trains_through_plane():
     model = RAFT(RAFTConfig(iters=1, teacher=True, teacher_iters=1))
     assert sorted(k for k in model.state_dict() if k.startswith("teacher_update_block.")) == sorted(
         "teacher_" + k for k in model.state_dict() if k.startswith("update_block."))
-    img = torch.zeros(1, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match="fused"):  # plane has no backward yet
-        model.semi_forward(img, img, img, img, torch.zeros(1, 2, dtype=torch.long))
+    img = torch.rand(1, 16, 16, 3, generator=torch.Generator().manual_seed(0))
+    # plane, the default lookup here, trains through K12's backward
+    out = model.semi_forward(img, img.flip(1), img, img.flip(1), torch.zeros(1, 2, dtype=torch.long))
+    loss = out["teacher_fw"].square().mean() + out["student_bw"].square().mean()
+    names = [n for n, _ in model.named_parameters()]
+    grads = dict(zip(names, torch.autograd.grad(loss, list(model.parameters()),
+                                                allow_unused=True)))
+    assert grads["teacher_update_block.flow_head.conv2.weight"].abs().max() > 0
+    assert grads["fnet.conv2.weight"].abs().max() > 0  # through the planes' backward
     with pytest.raises(ValueError, match="teacher=True"):
         RAFT(RAFTConfig(iters=1)).semi_forward(img, img, img, img, torch.zeros(1, 2))
 
