@@ -4,8 +4,9 @@ its three train steps (Baseline, Unsup, flow-supervisor semi with and
 without the teacher SMURF loss) through every kernel lookup, with and
 without per-iteration remat, and data-parallel, its GMA and small models, its
 training-data path through the train CLI, its entry points (the evaluate,
-extract_flow and ckpt_tool CLIs over JPEG frames and a Sintel tree), and
-the two kernels that no model path reaches (K5, K11) on one NVIDIA GPU.
+extract_flow and ckpt_tool CLIs over JPEG frames and a Sintel tree), its
+space-parallel evaluation (one pair's rows over a world of 2 ranks on the
+card), and K11, which no model path reaches, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -33,7 +34,11 @@ each printing one JSON line per check or configuration:
    of the plain fp32 value, and K8 launched twice (bit-identical outputs);
    K4 bit-identical to its plain version and K3 launched twice
    (bit-identical statistics) at the fnet shapes, ragged ones, C = 36 (the
-   scalar body), B = 20 and M = 1, each on the body its rule picks;
+   scalar body), B = 20 and M = 1, each on the body its rule picks; K3's
+   sums (``instance_norm_sums``, a space shard's local moments) at phase
+   9's per-rank norm shapes on the vector and the scalar body, within 1e-5
+   of the plain sums of |x| and x^2; K5 also at phase 9's shard rows plus
+   their 1-row halo;
 2. parity: a 216x512, 12-iteration fp32 forward on the card (kernels) against
    the same model and weights on the CPU (plain versions), for each lookup
    backend (plane, fused, pallas, einsum, the zero ablation, and auto:
@@ -164,6 +169,20 @@ each printing one JSON line per check or configuration:
    the step; 4 workers and serial) against in-memory batches (host clock)
    beside train_main's in-memory rate, and the device idle share of
    composed steps.
+9. space (parallel/spatial.py): one pair's rows over a world of 2 gloo
+   ranks spawned on the one card. RAFT under auto (fused) and einsum and
+   GMA (gamma 0.5) under fused, 448x1024, 12 iterations, fp32: each
+   sharded forward against the same forward in this process at phase 2's
+   limits, every rank holding the same flow, each rank's launch counts
+   from zero around one forward (K6 12 under fused; the encoders' conv ->
+   norm pairs as K5 10, K3 15 with the sums of the other 5 norms, K4 15;
+   no K2), host ms, peak memory, device ms and idle share per rank beside
+   this process's; then the Evaluator at space_parallel=2 against
+   space_parallel=1 at pad bucket 16 over a 436x1024 Sintel pass of 3
+   frames with the teacher split (12 + 12) and warm start, |d EPE| < 1e-3
+   px and each n-px accuracy within 1e-2, with its launches per rank.
+   With more than one card the phase runs again over NCCL, one rank a card,
+   in worlds of 2 and of every card.
 
 Then it prints K2's and K5's device time per fnet stage shape beside
 ``F.conv2d``'s, a JSON line of the kernels (launches in their configuration's
@@ -172,7 +191,8 @@ per train step; K12: per plane-lookup semi step; K5: per forward's fnet stage
 convs; K11: per 12 lookups),
 and the least time the card could take for the same work; K1 and K6-K9
 also their launches at radius 3 in phase 7's main-path runs, their largest
-bf16 error there, and K8 / K9 their ms per small Baseline step) and last
+bf16 error there, and K8 / K9 their ms per small Baseline step; K3-K6 their
+launches per rank in phase 9's fused RAFT forward, K5's model path) and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits
 non-zero; so does a machine without a CUDA device. It imports nothing of JAX.
 """
@@ -705,10 +725,11 @@ def tile_paths(f1, f2s, coords, radius=RADIUS) -> dict:
     many go per query (a tile with no valid query takes neither), the tile
     path's share of the pairs with a valid query, and the rows (taps of C
     channels) that the tile path's boxes read or add against those that one
-    read or add per query and valid tap (the first K6 / K7 and K9) would."""
+    read or add per query and valid tap (the first K6 / K7 and K9) would.
+    Every caller's queries are the whole level-0 map."""
     from flow_supervisor_tpu_torch.kernels import corr_fused
 
-    tiles = corr_fused.lookup_tiles(f1, f2s, coords, radius)
+    tiles = corr_fused.lookup_tiles(f1, f2s, coords, radius, query_hw=tuple(f2s[0].shape[1:3]))
     tile_by = [int(t.tile_path.sum()) for t in tiles]
     per_query_by = [int(((t.queries > 0) & ~t.tile_path).sum()) for t in tiles]
     tile, per_query = sum(tile_by), sum(per_query_by)
@@ -763,7 +784,7 @@ def k6_k7_checks(dev, dtype, gen, checks, radius=RADIUS, cases=K6_K7_CASES):
         if paths["tile_path"] == 0 or (name != "smooth") != (paths["per_query"] > 0):
             raise AssertionError(f"{kname} {name} B={b} C={c} r={radius}: unexpected paths {paths}")
         if b == 1:
-            got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, radius, dtype)
+            got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, radius, dtype, query_hw=(h8, w8))
         else:  # NaN until written: a channel no launch writes fails the check
             got = torch.full((coords.shape[0], LEVELS * k2), float("nan"), device=dev, dtype=dtype)
             for lvl, f2l in enumerate(pyr.f2s):
@@ -943,7 +964,7 @@ def phase_kernels(dev):
             del planes
             # K6: fp32 sums of 256 products in another order (rtol 1e-5 for fp32)
             pyr = corr_fused.build_fused_pyramid(f1, f2, LEVELS)
-            got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, RADIUS, dtype)
+            got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, RADIUS, dtype, query_hw=(h8, w8))
             want = corr_fused.corr_fused_plain(pyr.f1, pyr.f2s, coords, RADIUS, torch.float32)
             e = check_close(f"K6 {h8}x{w8} {dtype}", got, want, rtol or 1e-5, 1e-5)
             paths = tile_paths(pyr.f1, pyr.f2s, coords)
@@ -1048,9 +1069,38 @@ def phase_kernels(dev):
             if bf16:
                 errs["norm_stats"] = max(errs["norm_stats"], e)
             del x, st, st_ref, y, y_ref
-        # K5: the fnet stage shapes and a ragged one, relu off and on; fp32:
-        # only the summation order of 9*C <= 1152 terms differs
-        for shape, cout, n in CONV_SHAPES + [((2, 55, 90, 128), 72, 0), ((2, 46, 155, 96), 72, 0)]:
+        # K3's sums (kernels/norm.py instance_norm_sums: K3's partial rows
+        # summed in PyTorch), the local moments of a space shard's norms
+        # (models/layers.py global_instance_stats), at each rank's fnet norm
+        # shapes in phase 9 and C = 36, on the vector body and on the scalar
+        # one (x one element off a 16-byte boundary): within 1e-5 of the
+        # plain fp32 sums of |x| and x^2 (another order only)
+        for shape in SPACE_NORM_SHAPES:
+            for offset in (0, 1):
+                x = (3 * torch.randn(math.prod(shape) + offset, generator=gen) + 1.5).to(
+                    dev, dtype)[offset:].view(shape)
+                vec, vec0, st0 = norm.vector_body(x), norm.vector_launches, norm.stats_launches
+                got = norm.instance_norm_sums(x)
+                if (norm.stats_launches - st0, norm.vector_launches - vec0) != (1, int(vec)) \
+                        or vec != (offset == 0 and shape[3] % (16 // x.element_size()) == 0):
+                    raise AssertionError(f"K3 sums {shape} {dtype} offset {offset}: launches "
+                                         f"{norm.stats_launches - st0}, vector-body launches "
+                                         f"{norm.vector_launches - vec0}, vector_body {vec}")
+                want = norm.instance_norm_sums_plain(x)
+                rel = float(((got - want).abs() / norm.instance_norm_sums_plain(x.abs())).max())
+                if not (got.shape == want.shape and rel <= 1e-5):
+                    raise AssertionError(f"K3 sums {shape} {dtype} offset {offset}: "
+                                         f"{tuple(got.shape)}, max error {rel} of the sums of "
+                                         f"|x| and x^2, limit 1e-5")
+                checks.append({"kernel": "norm_stats", "wrapper": "instance_norm_sums",
+                               "shape": list(shape), "dtype": str(dtype), "vector_body": vec,
+                               "err": float((got - want).abs().max()), "rel_err": rel})
+                del x, got, want
+        # K5: the fnet stage shapes, a ragged one and a space shard's rows
+        # plus the 1-row halo of phase 9 (SPACE_CONV_SHAPES), relu off and
+        # on; fp32: only the summation order of 9*C <= 1152 terms differs
+        for shape, cout, n in CONV_SHAPES + [((2, 55, 90, 128), 72, 0), ((2, 46, 155, 96), 72, 0)] \
+                + SPACE_CONV_SHAPES:
             c = shape[3]
             x = torch.randn(*shape, generator=gen).to(dev, dtype)
             w = (torch.randn(3, 3, c, cout, generator=gen) * (2.0 / (9 * cout)) ** 0.5).to(dev, dtype)
@@ -1196,7 +1246,8 @@ def lookup_timing(backend, batch, pyramid, coords, dev):
         c = f1.shape[2]
         fixed = f1.numel() * f1.element_size() + coords.numel() * 4
         if batch == 1:
-            k, p = ab_ms(lambda: corr_fused.corr_fused_all(f1, f2s, coords, RADIUS, bf16),
+            k, p = ab_ms(lambda: corr_fused.corr_fused_all(f1, f2s, coords, RADIUS, bf16,
+                                                            query_hw=shapes[0][1]),
                          lambda: corr_fused.corr_fused_plain(f1, f2s, coords, RADIUS, bf16))
             nbytes = fixed + sum(f2.numel() * f2.element_size() for f2 in f2s) + out_bytes
         else:
@@ -2992,6 +3043,240 @@ def phase_entry(dev):
     emit({"phase": "entry", "ok": True, "seconds": time.perf_counter() - t_phase})
 
 
+# phase 9, space: one pair's rows over a world of 2 gloo ranks on the one card
+SPACE_WORLD = 2
+# a rank's fnet norm shapes at MAIN_HW (FNET_NORMS' stages) and C = 36 (the
+# scalar body in bf16), and its K5 inputs: the rows of CONV_SHAPES plus the
+# 1-row halo (each with 0 launches towards phase 1's main-path errors)
+SPACE_NORM_SHAPES = [(2, MAIN_HW[0] // (s * SPACE_WORLD), MAIN_HW[1] // s, c)
+                     for s, c, _, _ in FNET_NORMS] + [(2, MAIN_HW[0] // (8 * SPACE_WORLD),
+                                                        MAIN_HW[1] // 8, 36)]
+SPACE_CONV_SHAPES = [((b, h // SPACE_WORLD + 2, w, c), cout, 0)
+                     for (b, h, w, c), cout, _ in CONV_SHAPES]
+SPACE_CONFIGS = {  # name -> RAFTConfig fields (fp32, 12 iterations)
+    "raft_fused": dict(lookup_backend="auto"),
+    "raft_einsum": dict(lookup_backend="einsum"),
+    "gma_fused": dict(gma=True, lookup_backend="auto"),
+}
+# per rank and forward: every K2 + K4 pair runs as K5 + K3's sums + K4, the
+# other 5 norms as K3's sums + K4; the fused lookup's K6 once an iteration
+SPACE_ENCODER_LAUNCHES = {"conv3x3_bare": 10, "norm_stats": 15, "norm_apply": 15}
+SPACE_EVAL_ITERS = 12
+SPACE_PAD_BUCKET = 16
+
+
+def _space_rank(rank: int, world: int, workdir: str, backend: str = "gloo",
+                cards: int = 1) -> None:
+    """A rank of phase 9: its rows of the pair through each configuration's
+    sharded forward (launch counts from zero around one forward, host ms of
+    one forward, peak memory, device ms and idle share of one forward by the
+    profiler), then the Evaluator at space_parallel=world; saves the results
+    as <workdir>/rank<rank>.pt."""
+    entered = time.time()
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from flow_supervisor_tpu_torch.data import datasets as D
+    from flow_supervisor_tpu_torch.evaluation import Evaluator
+    from flow_supervisor_tpu_torch.kernels import _build
+    from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
+    from flow_supervisor_tpu_torch.parallel import mesh, spatial
+    from flow_supervisor_tpu_torch.profile_forward import profile
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", rank % cards)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.lib()
+    mesh.init_world(world, rank, dev, "file://" + os.path.join(workdir, "store"), backend)
+    try:
+        job = torch.load(os.path.join(workdir, "job.pt"))
+        img1, img2 = (t.to(dev) for t in job["images"])
+        out = {"forwards": {}, "seconds": {"start": time.perf_counter() - t0}}
+        for i, (name, kw) in enumerate(SPACE_CONFIGS.items()):
+            model = RAFT(RAFTConfig(iters=ITERS, **kw))
+            model.load_state_dict(job["states"][name])
+            fwd = spatial.spatial_forward(model.to(dev))
+            if i == 0:  # warm-up: cuDNN's algorithm choice, the allocator (shapes shared)
+                fwd(img1, img2)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            up, _ = fwd(img1, img2)
+            torch.cuda.synchronize()
+            fwd_ms = 1e3 * (time.perf_counter() - t0)
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            prof = profile(lambda: fwd(img1, img2), n=1)
+            out["forwards"][name] = {
+                "flow_up": up.cpu(), "launches": counts, "fwd_ms": fwd_ms, "peak_mem_bytes": peak,
+                "device_ms": prof.get("device_ms_per_forward"),
+                "device_idle_share": prof.get("device_idle_share")}
+            del model, fwd, up
+            torch.cuda.empty_cache()
+        out["seconds"]["forwards"] = time.perf_counter() - t0 - out["seconds"]["start"]
+        model = RAFT(RAFTConfig(teacher=True, teacher_iters=EVAL_TEACHER_ITERS,
+                                lookup_backend="auto"))
+        model.load_state_dict(job["states"]["teacher"])
+        model.to(dev)
+        with data_root(job["root"]):
+            recs = D.sintel(True, "clean")
+            ev = Evaluator(model, iters=SPACE_EVAL_ITERS, pad_bucket=SPACE_PAD_BUCKET,
+                           space_parallel=world)
+            reset_launch_counts()
+            out["evaluate"] = ev.evaluate(recs, warm_start=True)
+            out["evaluate_launches"] = launch_counts()
+            out["evaluate_pairs"] = len(recs)
+        out["seconds"]["total"] = time.perf_counter() - t0
+        out["clock"] = {"entered": entered, "done": time.time()}
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        mesh.close_world()
+
+
+def phase_space(dev, world: int = SPACE_WORLD, backend: str = "gloo", cards: int = 1):
+    """Space-parallel evaluation (parallel/spatial.py) on the one card as a
+    world of SPACE_WORLD ranks over gloo (or a world of ``world`` ranks over
+    ``backend``, rank r on card r % ``cards``): each configuration's full-width
+    448x1024 fp32 forward (12 iterations; RAFT under auto, i.e. fused, and
+    einsum; GMA, gamma 0.5, under fused) in the world against the same
+    forward in this process at phase 2's limits, each rank's launch counts
+    (K6 12 times under fused, K5 + K3 + K4 for the encoders' pairs, no K2),
+    host ms, peak memory, device ms and idle share per rank beside this
+    process's; then the Evaluator at space_parallel=2 against
+    space_parallel=1 at pad bucket 16 on phase 4's Sintel tree cut to one
+    pass of 3 frames (2 pairs), with the teacher split and warm start: |d EPE|
+    < 1e-3 px, each n-px accuracy within 1e-2. Returns rank 0's launch counts
+    of the fused RAFT forward."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from flow_supervisor_tpu_torch.data import datasets as D
+    from flow_supervisor_tpu_torch.evaluation import Evaluator
+    from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
+    from flow_supervisor_tpu_torch.ops.coords import downsample_shape
+    from flow_supervisor_tpu_torch.profile_forward import profile
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(21)
+    img1, img2 = synthetic_pair(1, *MAIN_HW, gen)
+    states, one = {}, {}
+    for name, kw in SPACE_CONFIGS.items():
+        model = RAFT(RAFTConfig(iters=ITERS, **kw), generator=gen)
+        set_gamma(model)
+        states[name] = model.state_dict()
+        model.to(dev)
+        a, b = img1.to(dev), img2.to(dev)
+
+        def forward():
+            return model(a, b, final_flow_only=True)["flow_up"][-1]
+
+        forward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        up = forward()
+        torch.cuda.synchronize()
+        fwd_ms = 1e3 * (time.perf_counter() - t0)
+        prof = profile(forward, n=1)
+        one[name] = {"flow_up": up.cpu(), "fwd_ms": fwd_ms,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                     "device_ms": prof.get("device_ms_per_forward"),
+                     "device_idle_share": prof.get("device_idle_share")}
+        del model, up
+        torch.cuda.empty_cache()
+    teacher = RAFT(RAFTConfig(teacher=True, teacher_iters=EVAL_TEACHER_ITERS,
+                              lookup_backend="auto"), generator=gen)
+    states["teacher"] = teacher.state_dict()
+    teacher.to(dev)
+    with tempfile.TemporaryDirectory(prefix="fst_space_") as tmp:
+        root = os.path.join(tmp, "datasets")
+        with data_root(root):
+            write_eval_tree(root, gen, EVAL_SINTEL_HW, EVAL_PARITY_HW, sintel_frames=3)
+            recs = D.sintel(True, "clean")
+            ev_one = Evaluator(teacher, iters=SPACE_EVAL_ITERS, pad_bucket=SPACE_PAD_BUCKET)
+            ev_one.evaluate(recs[:1])  # warm-up at the shape
+            eval_one = ev_one.evaluate(recs, warm_start=True)
+        del teacher, ev_one
+        torch.cuda.empty_cache()
+        torch.save({"images": (img1, img2), "states": states, "root": root},
+                   os.path.join(tmp, "job.pt"))
+        t0, spawned = time.perf_counter(), time.time()
+        mp.start_processes(_space_rank, args=(world, tmp, backend, cards), nprocs=world,
+                           start_method="spawn")
+        world_s, joined = time.perf_counter() - t0, time.time()
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(world)]
+    smi = gpu_line()
+    h8, w8 = MAIN_HW[0] // 8, MAIN_HW[1] // 8
+    levels = sum(downsample_shape(h8, 2 ** lvl) * downsample_shape(w8, 2 ** lvl)
+                 for lvl in range(LEVELS))
+    for name, kw in SPACE_CONFIGS.items():
+        ref = one[name]["flow_up"]
+        runs = [r["forwards"][name] for r in ranks]
+        d = (runs[0]["flow_up"] - ref).abs()
+        want = {k: 0 for k in SOURCES}
+        want.update(SPACE_ENCODER_LAUNCHES)
+        if "fused" in name:
+            want["corr_fused_all"] = ITERS
+        res = {"phase": "space", "config": name, "world": world, "backend": backend,
+               "cards": cards, "hw": list(MAIN_HW), "iters": ITERS, "dtype": "float32",
+               "lookup_backend": kw["lookup_backend"], "gma_gamma": GMA_GAMMA if "gma" in name
+               else None, "mean_abs_diff_px": float(d.mean()), "max_abs_diff_px": float(d.max()),
+               "max_abs_flow_px": float(ref.abs().max()),
+               "ranks_equal": all(torch.equal(r["flow_up"], runs[0]["flow_up"]) for r in runs),
+               "launches_per_rank": [r["launches"] for r in runs],
+               "fwd_ms_per_rank": [r["fwd_ms"] for r in runs],
+               "fwd_ms_one_process": one[name]["fwd_ms"],
+               "peak_mem_bytes_per_rank": [r["peak_mem_bytes"] for r in runs],
+               "peak_mem_bytes_one_process": one[name]["peak_mem_bytes"],
+               "device_ms_per_rank": [r["device_ms"] for r in runs],
+               "device_ms_one_process": one[name]["device_ms"],
+               "device_idle_share_per_rank": [r["device_idle_share"] for r in runs],
+               "device_idle_share_one_process": one[name]["device_idle_share"],
+               "gpu": smi}
+        if kw["lookup_backend"] == "einsum":  # the fp32 volume pyramid, by its shapes
+            res["einsum_pyramid_bytes_one_process"] = h8 * w8 * levels * 4
+            res["einsum_pyramid_bytes_per_rank"] = h8 * w8 * levels * 4 // world
+        res["ok"] = bool(torch.isfinite(runs[0]["flow_up"]).all() and res["ranks_equal"]
+                         and res["mean_abs_diff_px"] < 1e-3 and res["max_abs_diff_px"] < 2e-2
+                         and all(r["launches"] == want for r in runs))
+        emit(res)
+        if not res["ok"]:
+            raise AssertionError(f"space {name}: sharded forward failed (launches expected "
+                                 f"{want}): {res}")
+    pairs = ranks[0]["evaluate_pairs"]
+    want = {k: 0 for k in SOURCES}
+    want.update({k: pairs * v for k, v in SPACE_ENCODER_LAUNCHES.items()})
+    want["corr_fused_all"] = pairs * (SPACE_EVAL_ITERS + EVAL_TEACHER_ITERS)
+    diffs = [{k: abs(r["evaluate"][k] - eval_one[k]) for k in eval_one
+              if k.startswith(("student_", "teacher_"))} for r in ranks]
+    res = {"phase": "space", "check": "evaluator", "world": world, "backend": backend,
+           "cards": cards, "pairs": pairs,
+           "hw": list(EVAL_SINTEL_HW), "pad_bucket": SPACE_PAD_BUCKET,
+           "iters": SPACE_EVAL_ITERS, "teacher_iters": EVAL_TEACHER_ITERS, "warm_start": True,
+           "dtype": "float32", "lookup_backend": "auto (fused)",
+           "max_abs_diff": diffs[0], "space_parallel_2": ranks[0]["evaluate"],
+           "space_parallel_1": eval_one,
+           "launches_per_rank": [r["evaluate_launches"] for r in ranks],
+           "world_seconds": world_s, "rank_seconds": [r["seconds"] for r in ranks],
+           "spawn_to_rank_entered_s": min(r["clock"]["entered"] for r in ranks) - spawned,
+           "rank_done_to_joined_s": joined - max(r["clock"]["done"] for r in ranks),
+           "gpu": smi}
+    check_eval_result("space evaluator", ranks[0]["evaluate"], sparse=False)
+    res["ok"] = bool(all(diffs) and all(
+        d < (EVAL_PARITY_EPE if k.endswith("_epe") else EVAL_PARITY_SHARE)
+        for dd in diffs for k, d in dd.items())
+        and all(r["evaluate_launches"] == want for r in ranks))
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"space evaluator failed (launches expected {want}): {res}")
+    emit({"phase": "space", "ok": True, "world": world, "backend": backend, "cards": cards,
+          "seconds": time.perf_counter() - t_phase})
+    return ranks[0]["forwards"]["raft_fused"]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -3032,6 +3317,10 @@ def main() -> int:
     r3_launches, r3_times, r3_errs = phase_gma_small(dev)
     phase_entry(dev)
     phase_train_data(dev, semi_res)
+    space_launches = phase_space(dev)
+    cards = torch.cuda.device_count()
+    for world in sorted({2, cards}) if cards > 1 else ():  # one rank a card, over NCCL
+        phase_space(dev, world, "nccl", world)
 
     kernels = []
     for name, (src, rep) in SOURCES.items():
@@ -3066,6 +3355,12 @@ def main() -> int:
             entry["ms_radius_3"] = r3_times[name]["ms"]
             entry["plain_ms_radius_3"] = r3_times[name]["plain_ms"]
             entry["bound_ms_radius_3"] = r3_times[name]["bound_ms"]
+        # phase 9: launches per rank of the space-parallel RAFT forward (fused,
+        # fp32, a world of 2), where K5 carries the encoders' conv -> norm pairs
+        if space_launches[name]:
+            entry["launches_space_per_rank"] = space_launches[name]
+            entry["config_space"] = {"space_parallel": SPACE_WORLD, "lookup_backend": "fused",
+                                     "dtype": "float32", "hw": list(MAIN_HW)}
         kernels.append(entry)
     # K2 and K5 per fnet stage shape beside F.conv2d (bf16, device ms per call)
     emit({"conv_per_shape": [

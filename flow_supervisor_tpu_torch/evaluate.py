@@ -8,8 +8,21 @@
 It takes the root CLI's positional ``ckpt_dir`` and flags, plus
 ``--device``: ``cuda`` (the default; exits non-zero without a card) or
 ``cpu``. ``--run_eagerly`` / ``-e`` are accepted and dropped: the port
-always runs eagerly. ``--space_parallel`` above 1 is refused
-(``evaluation.Evaluator``).
+always runs eagerly.
+
+``--space_parallel N`` (N > 1) evaluates every pair over a world of N ranks,
+each holding H / N of its padded rows (``evaluation.Evaluator``,
+parallel/spatial.py; the padding aligns H to 8N). Unless the process was
+started by ``torchrun`` (``RANK`` / ``WORLD_SIZE`` in the environment), the
+command spawns its ranks with ``torch.multiprocessing``; they meet through a
+``FileStore`` in a temporary directory (no network). Each rank runs on
+``parallel.mesh.rank_device`` (card rank % cards, or the CPU), over NCCL
+when every rank has a card of its own and gloo otherwise (two ranks on one
+card). Rank 0 prints the results; the command exits non-zero if any rank
+fails. Under torchrun N must equal the world size (else exit code 2):
+
+    torchrun --nproc_per_node 2 -m flow_supervisor_tpu_torch.evaluate <ckpt_dir> \
+        --dataset sintel --space_parallel 2
 
 The model comes from the port's checkpoint directory: its ``args.yaml``
 (``config.ExperimentConfig.load_yaml``), ``training.loop.build_model`` (RAFT,
@@ -114,6 +127,40 @@ def evaluate(model, dataset: str, iters: int, warm_start: bool = False, use_teac
     return ev.evaluate(recs, sparse=True, warm_start=warm_start)
 
 
+def run(args, device: str, space_parallel: int = 1) -> dict:
+    """Load the model on ``device`` and evaluate it (in the current world)."""
+    model, _ = load_model(args.ckpt_dir, args.tf_ckpt, args.step, args.precision, device)
+    iters = args.eval_iters or (32 if args.dataset == "sintel" else 24)
+    return evaluate(model, args.dataset, iters, args.warm_start, args.use_teacher,
+                    args.pad_bucket, space_parallel)
+
+
+def run_rank(rank: int, world: int, args, init_method: str, out_path: str | None = None,
+             local_rank: int | None = None) -> dict:
+    """Evaluate as ``rank`` of a world of ``world`` on this rank's device,
+    with ``args.space_parallel`` ranks to a pair (the Evaluator refuses a
+    count other than the world's); rank 0 writes the results to
+    ``out_path`` as JSON."""
+    import torch
+
+    from flow_supervisor_tpu_torch.parallel import mesh
+
+    device = mesh.rank_device(args.device, rank if local_rank is None else local_rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:  # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    mesh.init_world(world, rank, device, init_method)
+    try:
+        results = run(args, str(device), args.space_parallel)
+    finally:
+        mesh.close_world()
+    if rank == 0 and out_path:
+        with open(out_path, "w") as f:
+            json.dump(results, f)
+    return results
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     argv = [a for a in argv if a not in ("--run_eagerly", "-e")]
@@ -125,14 +172,39 @@ def main(argv=None) -> int:
         print("evaluate needs a CUDA device; none is available (pass --device cpu)",
               file=sys.stderr)
         return 2
-    model, _ = load_model(args.ckpt_dir, args.tf_ckpt, args.step, args.precision, args.device)
-    iters = args.eval_iters or (32 if args.dataset == "sintel" else 24)
-    try:
-        results = evaluate(model, args.dataset, iters, args.warm_start, args.use_teacher,
-                           args.pad_bucket, args.space_parallel)
-    except NotImplementedError as e:  # --space_parallel above 1
-        print(e, file=sys.stderr)
+    if args.space_parallel < 1:
+        print(f"--space_parallel must be at least 1, got {args.space_parallel}", file=sys.stderr)
         return 2
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and "RANK" in os.environ:  # torchrun
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        if args.space_parallel != world:
+            print(f"evaluate: --space_parallel {args.space_parallel} under torchrun needs a "
+                  f"world of {args.space_parallel} ranks; torchrun started {world}",
+                  file=sys.stderr)
+            return 2
+        results = run_rank(rank, world, args, "env://",
+                           local_rank=int(os.environ.get("LOCAL_RANK", rank)))
+        if rank == 0:
+            print(json.dumps(results, indent=2))
+        return 0
+    if args.space_parallel == 1:
+        print(json.dumps(run(args, args.device), indent=2))
+        return 0
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    n = args.space_parallel
+    with tempfile.TemporaryDirectory(prefix="fst_eval_") as d:
+        out = os.path.join(d, "results.json")
+        try:
+            mp.spawn(run_rank, args=(n, args, "file://" + os.path.join(d, "store"), out),
+                     nprocs=n)
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            print(f"evaluate: a rank of the space-parallel world failed:\n{e}", file=sys.stderr)
+            return 1
+        with open(out) as f:
+            results = json.load(f)
     print(json.dumps(results, indent=2))
     return 0
 

@@ -20,10 +20,13 @@ optional warm start, and the standing validation of training.
   ``make_train_validator``: the training loop's standing validation.
 
 The Evaluator runs on the model's device, in the model's eval mode (it puts
-back the mode it found), and sets no global flag.
+back the mode it found), and sets no global flag. With ``space_parallel`` =
+n it runs as one of n ranks, each on its rows of every pair
+(parallel/spatial.py), all with the same results.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Iterable, Optional
 
@@ -35,6 +38,7 @@ from flow_supervisor_tpu_torch.data.pipeline import load_record
 from flow_supervisor_tpu_torch.metrics import dense_metrics, sparse_metrics
 from flow_supervisor_tpu_torch.ops.coords import coords_grid, downsample_shape
 from flow_supervisor_tpu_torch.ops.pad import pad_spec_for
+from flow_supervisor_tpu_torch.parallel import mesh, spatial
 from flow_supervisor_tpu_torch.utils.warm_start import forward_interpolate
 
 
@@ -68,8 +72,16 @@ def run_pair(
 
 class Evaluator:
     """Scores a model over record lists (module docstring). ``use_teacher``
-    (default: whether the model has a teacher head) picks the teacher split;
-    ``space_parallel`` > 1 (JAX's space-sharded evaluation) is not ported."""
+    (default: whether the model has a teacher head) picks the teacher split.
+
+    ``space_parallel`` = n > 1 (JAX's space-sharded evaluation) runs in a
+    world of n ranks (parallel/mesh.py ``init_world``; the evaluate CLI's
+    ``--space_parallel`` spawns it): every rank decodes the pair, runs its
+    rows of it (parallel/spatial.py) through the student or the teacher
+    split and warm start, gets the whole flow back and computes the same
+    metrics. The padding then aligns H to 8n (``pad_bucket`` at least 8n,
+    JAX's rule). The model keeps its lookup backend, where JAX's sharded
+    evaluation switches to einsum."""
 
     def __init__(
         self,
@@ -80,26 +92,33 @@ class Evaluator:
         space_parallel: int = 1,
     ):
         if space_parallel > 1:
-            raise NotImplementedError(
-                "space_parallel > 1: space-parallel evaluation is not ported yet "
-                "(ROADMAP Queue 1, item 9)"
-            )
+            if mesh.world_size() != space_parallel:
+                raise ValueError(
+                    f"Evaluator(space_parallel={space_parallel}) needs a world of "
+                    f"{space_parallel} ranks; this process is in a world of "
+                    f"{mesh.world_size()} (parallel/mesh.py init_world, or the evaluate "
+                    "CLI's --space_parallel)")
+            pad_bucket = max(pad_bucket, 8 * space_parallel)
         self.model = model
         self.iters = iters
         self.use_teacher = bool(model.cfg.teacher) if use_teacher is None else use_teacher
         self.pad_bucket = pad_bucket
+        self.space_parallel = space_parallel
 
     def _teacher_forward(self, x1, x2, flow_init):
         """The student for ``iters`` (final flow only), then the teacher head
         from the student's final hidden state at coords0 + its final low
-        flow for ``teacher_iters`` -> (student up, teacher up, student low)."""
+        flow for ``teacher_iters`` -> (student up, teacher up, student low).
+        flow_init is the whole frame's (under a space shard too)."""
         m = self.model
         b, h, w, _ = x1.shape
         pyramid = m.build_corr(*m.features(x1, x2))
         net, inp = m.context(x1)
         attention = m.attention_map(inp)  # GMA: one map for the student and the teacher
-        coords0 = coords_grid(b, downsample_shape(h), downsample_shape(w), device=x1.device)
-        coords1 = coords0 if flow_init is None else coords0 + flow_init
+        h8 = downsample_shape(h)
+        coords0 = coords_grid(b, h8, downsample_shape(w), device=x1.device,
+                              row0=spatial.first_row(h8))
+        coords1 = coords0 if flow_init is None else coords0 + spatial.local_rows(flow_init)
         net, _, stu_up, stu_low = m.iterate(
             net, inp, pyramid, coords0, coords1, (h, w), self.iters, final_flow_only=True,
             attention=attention)
@@ -121,12 +140,16 @@ class Evaluator:
         if flow_init is not None:
             init = torch.from_numpy(np.asarray(flow_init, np.float32)[None]).to(device)
         results = {}
-        if self.use_teacher:
-            stu, tea, low = self._teacher_forward(x1, x2, init)
-            results["teacher"] = _unpad(tea.float().cpu().numpy(), spec)
-        else:
-            out = self.model(x1, x2, flow_init=init, iters=self.iters, final_flow_only=True)
-            stu, low = out["flow_up"][-1], out["flow_low"][-1]
+        with spatial.shard(x1.shape[1], x1.shape[2]) if self.space_parallel > 1 \
+                else contextlib.nullcontext():
+            x1, x2 = spatial.local_rows(x1), spatial.local_rows(x2)
+            if self.use_teacher:
+                stu, tea, low = self._teacher_forward(x1, x2, init)
+                results["teacher"] = _unpad(tea.float().cpu().numpy(), spec)
+            else:
+                out = self.model(x1, x2, flow_init=init, iters=self.iters, final_flow_only=True)
+                stu, low = out["flow_up"][-1], out["flow_low"][-1]
+            low = spatial.gather_rows(low)
         results["student"] = _unpad(stu.float().cpu().numpy(), spec)
         return results, low[0].float().cpu().numpy()
 

@@ -16,8 +16,9 @@ a ``torch.autograd.Function`` whose backward is ``_cin_bwd``'s (below).
 written in x's dtype; a ``torch.autograd.Function`` whose backward is the
 JAX package's ``_conv_bwd``: PyTorch's conv backward in x's dtype, the relu
 mask taken from the conv recomputed in x's dtype (not from the fp32 forward),
-the incoming cotangent cast to that dtype first. No model path of either
-package calls it; its own function is the only caller.
+the incoming cotangent cast to that dtype first. In the JAX package its own
+function is the only caller; in the port the space-sharded encoders call
+``conv3x3_bare`` for every pair K2 carries unsharded (models/encoders.py).
 
 Each wrapper takes the plain PyTorch version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises. The kernel has two bodies

@@ -148,11 +148,12 @@ def _check_args(what, f1, f2s, coords, radius):
 
 def corr_fused_all(
     f1: torch.Tensor, f2s: list[torch.Tensor], coords: torch.Tensor, radius: int = 4,
-    out_dtype=torch.float32,
+    out_dtype=torch.float32, *, query_hw: tuple[int, int],
 ) -> torch.Tensor:
     """K6: all levels in one launch -> [B * Q, L * (2r+1)^2] in out_dtype. The
-    queries' grid is the level-0 map f2s[0] when it holds the Q queries, else
-    one row."""
+    queries' grid is query_hw (h1, w1) when it holds the Q queries, else one
+    row: the level-0 map for a whole frame, a space shard's rows of it
+    (models/raft.py); their positions are in coords either way."""
     global all_launches
     _check_args("corr_fused_all", f1, f2s, coords, radius)
     if not 1 <= len(f2s) <= MAX_LEVELS:
@@ -165,7 +166,7 @@ def corr_fused_all(
     with torch.cuda.device(f1.device):
         rc = _build.lib().fst_corr_fused_all(
             f1.data_ptr(), *_level_arrays([f2.data_ptr() for f2 in f2s], f2s), nl,
-            f2s[0].shape[1], f2s[0].shape[2], coords.data_ptr(), out.data_ptr(), b * q, q, c,
+            *query_hw, coords.data_ptr(), out.data_ptr(), b * q, q, c,
             radius, _build.dtype_code(f1), _build.dtype_code(out), _build.stream_of(f1),
         )
     _build.check(rc, "corr_fused_all")
@@ -267,12 +268,14 @@ class TileBoxes(NamedTuple):
     tile_path: torch.Tensor
 
 
-def lookup_tiles(f1, f2s, coords, radius: int = 4) -> list[TileBoxes]:
+def lookup_tiles(f1, f2s, coords, radius: int = 4, *,
+                 query_hw: tuple[int, int]) -> list[TileBoxes]:
     """Each level's tiles of K6 / K7, K8 and K9 (TILE_Y x TILE_X queries of
     one sample, the last ones ragged) by the kernels' rule, for f1 [B, Q, C],
-    the pooled f2s and coords [B * Q, 2] at level 0."""
+    the pooled f2s and coords [B * Q, 2] at level 0, on the query grid
+    query_hw (the forward's, ``corr_pyramid_lookup_fused``)."""
     b, q, _ = f1.shape
-    h0, w0 = f2s[0].shape[1], f2s[0].shape[2]
+    h0, w0 = query_hw
     qh, qw = (h0, w0) if h0 * w0 == q else (1, q)  # the level-0 map, else one row
     nty, ntx = -(-qh // TILE_Y), -(-qw // TILE_X)
     sup = 2 * radius + 2
@@ -373,15 +376,15 @@ class _FusedLookup(torch.autograd.Function):
     ``stop_gradient`` does."""
 
     @staticmethod
-    def forward(ctx, flat, radius, out_dtype, batch, f1, *f2s):
+    def forward(ctx, flat, radius, out_dtype, query_hw, f1, *f2s):
         ctx.radius = radius
         ctx.save_for_backward(flat, f1, *f2s)
-        if batch == 1:
-            return corr_fused_all(f1, list(f2s), flat, radius, out_dtype)
+        if f1.shape[0] == 1:
+            return corr_fused_all(f1, list(f2s), flat, radius, out_dtype, query_hw=query_hw)
         k2 = (2 * radius + 1) ** 2
         out = torch.empty((flat.shape[0], len(f2s) * k2), dtype=out_dtype, device=flat.device)
         for lvl, f2 in enumerate(f2s):
-            corr_fused_level(f1, f2, lvl, flat, radius, out, tuple(f2s[0].shape[1:3]))
+            corr_fused_level(f1, f2, lvl, flat, radius, out, query_hw)
         return out
 
     @staticmethod
@@ -404,5 +407,5 @@ def corr_pyramid_lookup_fused(
     factors (K8 / K9), not in coords."""
     b, h1, w1, _ = coords.shape
     flat = coords.detach().reshape(b * h1 * w1, 2).float().contiguous()
-    out = _FusedLookup.apply(flat, radius, out_dtype, b, pyramid.f1, *pyramid.f2s)
+    out = _FusedLookup.apply(flat, radius, out_dtype, (h1, w1), pyramid.f1, *pyramid.f2s)
     return out.reshape(b, h1, w1, -1)

@@ -4,6 +4,8 @@ K3 (statistics) and K4 (apply), counterpart of flow_supervisor_tpu/kernels/norm.
 - ``instance_norm_stats``: per-(b, c) fp32 sum and sum of squares over H*W ->
   stats [B, 2, C] = (mean, rsqrt(max(E[x^2] - mean^2, 0) + eps)), eps 1e-5
   (csrc/norm.cu, replaces ``_stats_kernel``).
+- ``instance_norm_sums``: K3's per-(b, c) sums alone, [B, 2, C] (the local
+  moments of a space shard, whose statistics are global).
 - ``instance_norm_apply``: y = (x - mean) * r, optional relu, cast to x's dtype
   (csrc/norm.cu, replaces ``_apply_kernel``); it also finishes the
   conv3x3 + instance-norm pair (kernels/conv3x3.py).
@@ -88,12 +90,34 @@ def _check_stats(stats: torch.Tensor, x: torch.Tensor, what: str) -> None:
         )
 
 
+def instance_norm_sums_plain(x: torch.Tensor) -> torch.Tensor:
+    """fp32 (sum of x, sum of x^2) over H*W of x [B, H, W, C] -> [B, 2, C]."""
+    x32 = x.float()
+    return torch.stack([x32.sum(dim=(1, 2)), (x32 * x32).sum(dim=(1, 2))], dim=1)
+
+
 def instance_norm_stats(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """K3: statistics of x [B, H, W, C] -> [B, 2, C] float32."""
-    global stats_launches, vector_launches
     _build.check_nhwc(x, "instance_norm_stats")
     if not _build.uses_kernel("instance_norm_stats", x):
         return instance_norm_stats_plain(x, eps)
+    return _k3(x, eps)[0]
+
+
+def instance_norm_sums(x: torch.Tensor) -> torch.Tensor:
+    """The moments of K3: (sum of x, sum of x^2) over H*W of x [B, H, W, C]
+    -> [B, 2, C] float32, the sum of K3's partial rows (a space shard's local
+    moments, models/layers.py). One K3 launch; its statistics go unused."""
+    _build.check_nhwc(x, "instance_norm_sums")
+    if not _build.uses_kernel("instance_norm_stats", x):
+        return instance_norm_sums_plain(x)
+    return _k3(x, EPS)[1].sum(dim=1)
+
+
+def _k3(x: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """One K3 launch -> (stats [B, 2, C], partial rows [B, P, 2, C] of the sums
+    of x and x^2)."""
+    global stats_launches, vector_launches
     b, h, w, c = x.shape
     lib, code, vec = _build.lib(), _build.dtype_code(x), vector_body(x)
     stats = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
@@ -107,7 +131,7 @@ def instance_norm_stats(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     _build.check(rc, "instance_norm_stats")
     stats_launches += 1
     vector_launches += vec
-    return stats
+    return stats, partials
 
 
 def instance_norm_apply(

@@ -20,7 +20,9 @@ instance norm (stem, after each stride-2 conv1, downsample) as K3 + K4
 (kernels/norm.py). Every instance norm of ``SmallEncoder`` runs as K3 + K4:
 its 3x3 convs are a quarter of the block's width and come after a 1x1, so
 no pair fuses into K2. Batch-, group- and no-norm encoders run no kernel of
-this package.
+this package. Under a space shard (parallel/spatial.py) each K2 + K4 pair
+runs as K5 + K3's sums + K4 (``_conv_instnorm_relu``), and every other
+instance norm as K3's sums + K4, both with moments over the whole frame.
 
 Activations are NCHW in ``torch.channels_last`` memory format.
 """
@@ -30,21 +32,37 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from flow_supervisor_tpu_torch.kernels.conv3x3 import conv3x3_instnorm_relu
+from flow_supervisor_tpu_torch.kernels.conv3x3 import conv3x3_bare, conv3x3_instnorm_relu
+from flow_supervisor_tpu_torch.kernels.norm import instance_norm_apply
 from flow_supervisor_tpu_torch.models.layers import (
     InstanceNorm,
     conv2d,
+    global_instance_stats,
     make_norm,
     nchw,
     nhwc,
 )
+from flow_supervisor_tpu_torch.parallel import spatial
 
 
 def _conv_instnorm_relu(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """3x3 stride-1 conv -> instance norm -> relu through K2 + K4, the
-    parameters cast to x's dtype."""
+    parameters cast to x's dtype.
+
+    Under a space shard K2's statistics would cover only the shard's rows,
+    so the pair runs in three steps: K5 on the rows with a 1-row halo from
+    the neighbouring ranks (cropped back to the shard), the moments of the
+    whole frame (K3's sums, summed over the world), then K4 with relu. The
+    statistics are then those of the conv output in x's dtype, where K2
+    takes them from the fp32 accumulator: the same in fp32, rounded to bf16
+    first in a bf16 run (as JAX's space-sharded forward, ``fused_norm=False``)."""
     w = conv.weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()  # OIHW -> HWIO
-    return nchw(conv3x3_instnorm_relu(nhwc(x), w, conv.bias.to(x.dtype), relu=True))
+    b = conv.bias.to(x.dtype)
+    if spatial.current() is None:
+        return nchw(conv3x3_instnorm_relu(nhwc(x), w, b, relu=True))
+    rows = x.shape[2]
+    y = conv3x3_bare(spatial.halo_rows(nhwc(x), 1, 1), w, b)[:, 1 : rows + 1].contiguous()
+    return nchw(instance_norm_apply(y, global_instance_stats(y), relu=True))
 
 
 class ResidualBlock(nn.Module):

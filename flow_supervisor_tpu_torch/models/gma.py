@@ -25,6 +25,11 @@ serves every refinement iteration. Its two products, q . k^T once and attn .
 v in every iteration, are ``torch.matmul`` on [B, heads, N, d] (N = h8 * w8):
 one map weighs twelve different v's, so no fused attention call fits.
 
+Under a space shard (parallel/spatial.py) the queries stay the shard's
+rows: ``Attention`` gathers k, the position term's height table takes the
+shard's global rows against all rows, and ``Aggregate`` gathers v in every
+iteration.
+
 Module names follow the reference torch GMA (``att.to_qk``,
 ``att.pos_emb.rel_height``, ``update_block.aggregator.to_v``, ...). The
 reference keeps its index table as a buffer (``rel_ind``); here the indices
@@ -39,6 +44,8 @@ import torch
 from torch import nn
 
 from flow_supervisor_tpu_torch.models.layers import Conv2d, nchw, nhwc
+from flow_supervisor_tpu_torch.parallel import spatial
+from flow_supervisor_tpu_torch.parallel.spatial import first_row
 from flow_supervisor_tpu_torch.models.update import (
     BasicMotionEncoder,
     FlowHead,
@@ -60,24 +67,33 @@ class RelPosEmb(nn.Module):
         self.rel_height = nn.Embedding(2 * max_pos_size - 1, dim_head)
         self.rel_width = nn.Embedding(2 * max_pos_size - 1, dim_head)
 
-    def _table(self, emb: nn.Embedding, n: int) -> torch.Tensor:
-        """emb's rows at i - j + max_pos_size - 1 -> [n, n, dim_head]."""
-        i = torch.arange(n, device=emb.weight.device)
-        return emb.weight[i[:, None] - i[None, :] + self.max_pos_size - 1]
+    def _table(self, emb: nn.Embedding, n: int, rows: int | None = None,
+               row0: int = 0) -> torch.Tensor:
+        """emb's rows at i - j + max_pos_size - 1 for the queries i in [row0,
+        row0 + rows) (default all n) and the keys j in [0, n) -> [rows, n, dim_head]."""
+        dev = emb.weight.device
+        i = torch.arange(row0, row0 + (n if rows is None else rows), device=dev)
+        j = torch.arange(n, device=dev)
+        return emb.weight[i[:, None] - j[None, :] + self.max_pos_size - 1]
 
     def forward(self, q: torch.Tensor) -> torch.Tensor:
-        """q [B, heads, h, w, d] -> scores [B, heads, h, w, h, w] in fp32:
+        """q [B, heads, h, w, d] -> scores [B, heads, h, w, H, w] in fp32:
         JAX's tables are fp32 parameters (here they may be stored in the
-        compute dtype), and its einsum promotes q to them."""
+        compute dtype), and its einsum promotes q to them. H is the frame's
+        height: under a space shard q holds the shard's h rows, whose global
+        indices (``spatial.first_row``) index the height table against all
+        H rows; otherwise H = h."""
         h, w = q.shape[2], q.shape[3]
-        if max(h, w) > self.max_pos_size:
+        full_h = h * spatial.space_world()
+        if max(full_h, w) > self.max_pos_size:
             # JAX's gather clamps the out-of-range indices; the port refuses them
             raise ValueError(
-                f"RelPosEmb: a {h}x{w} feature map exceeds max_pos_size {self.max_pos_size} "
-                "(the position tables cover offsets below it)"
+                f"RelPosEmb: a {full_h}x{w} feature map exceeds max_pos_size "
+                f"{self.max_pos_size} (the position tables cover offsets below it)"
             )
         q = q.float()
-        height = torch.einsum("bnxyd,xud->bnxyu", q, self._table(self.rel_height, h).float())
+        rows = self._table(self.rel_height, full_h, h, first_row(h)).float()
+        height = torch.einsum("bnxyd,xud->bnxyu", q, rows)
         width = torch.einsum("bnxyd,yvd->bnxyv", q, self._table(self.rel_width, w).float())
         return height[..., :, None] + width[..., None, :]
 
@@ -99,24 +115,27 @@ class Attention(nn.Module):
     def forward(self, fmap: torch.Tensor) -> torch.Tensor:
         """fmap NCHW [B, dim, h, w] -> the attention map [B, heads, N, N] in
         the scores' dtype (module docstring), rows (queries) summing to 1
-        over the source pixels."""
+        over the source pixels. Under a space shard fmap holds the shard's
+        rows, the map [B, heads, N / n, N] its queries against the whole
+        frame's keys (gathered), the softmax over all N."""
         b, _, h, w = fmap.shape
         inner = self.heads * self.dim_head
         qk = nhwc(self.to_qk(fmap))  # [B, h, w, 2 * inner]
 
-        def heads(t):  # [B, h, w, inner] -> [B, heads, h, w, d]
-            return t.reshape(b, h, w, self.heads, self.dim_head).permute(0, 3, 1, 2, 4)
+        def heads(t):  # [B, rows, w, inner] -> [B, heads, rows, w, d]
+            return t.reshape(b, -1, w, self.heads, self.dim_head).permute(0, 3, 1, 2, 4)
 
         q = heads(qk[..., :inner]) * (self.dim_head ** -0.5)
-        k = heads(qk[..., inner:])
-        n = h * w
+        n_q = h * w
+        n = n_q * spatial.space_world()  # the keys: every row of the frame
         if self.position_only:
-            sim = self.pos_emb(q).reshape(b, self.heads, n, n)
+            sim = self.pos_emb(q).reshape(b, self.heads, n_q, n)
         else:
-            sim = torch.matmul(q.reshape(b, self.heads, n, self.dim_head),
+            k = heads(spatial.gather_rows(qk[..., inner:].contiguous()))
+            sim = torch.matmul(q.reshape(b, self.heads, n_q, self.dim_head),
                                k.reshape(b, self.heads, n, self.dim_head).transpose(-1, -2))
             if self.position_and_content:
-                sim = sim + self.pos_emb(q).reshape(b, self.heads, n, n)
+                sim = sim + self.pos_emb(q).reshape(b, self.heads, n_q, n)
         return torch.softmax(sim.float(), dim=-1).to(sim.dtype)
 
 
@@ -134,7 +153,9 @@ class Aggregate(nn.Module):
         (the attention-weighted v, projected to dim), NCHW in fmap's dtype."""
         b, _, h, w = fmap.shape
         inner = self.heads * self.dim_head
-        v = nhwc(self.to_v(fmap)).reshape(b, h * w, self.heads, self.dim_head)
+        # under a space shard: v of the whole frame, the map's rows this shard's queries
+        v = spatial.gather_rows(nhwc(self.to_v(fmap)).contiguous())
+        v = v.reshape(b, -1, self.heads, self.dim_head)
         dtype = torch.promote_types(attn.dtype, v.dtype)
         out = torch.matmul(attn.to(dtype), v.transpose(1, 2).to(dtype))  # [B, heads, N, d]
         out = nchw(out.transpose(1, 2).reshape(b, h, w, inner))

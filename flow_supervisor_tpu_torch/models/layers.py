@@ -19,6 +19,10 @@ parameters, the result in the input's dtype; no model path reaches it, the
 small model's encoders take instance norm and none); ``none`` is the
 identity.
 
+Under a space shard (parallel/spatial.py) convs exchange halo rows with
+the neighbouring ranks and the instance and group norms take moments over
+the whole frame; eval-mode batch norm needs nothing.
+
 Every conv casts its weight and bias to its input's dtype (the compute
 dtype) at each call: a no-op where the model holds its parameters in that
 dtype (inference), the cast of the fp32 masters in training.
@@ -34,8 +38,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from flow_supervisor_tpu_torch.kernels.norm import instance_norm
-from flow_supervisor_tpu_torch.parallel import mesh
+from flow_supervisor_tpu_torch.kernels.norm import (
+    EPS,
+    instance_norm,
+    instance_norm_apply,
+    instance_norm_sums,
+)
+from flow_supervisor_tpu_torch.parallel import mesh, spatial
 
 
 def _pair(k):
@@ -45,11 +54,22 @@ def _pair(k):
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose parameters are cast to the input's dtype at every
     call, as flax casts its fp32 params to the compute dtype at every apply:
-    the gradient of each use comes back to an fp32 master in fp32."""
+    the gradient of each use comes back to an fp32 master in fp32.
+
+    Under a space shard (parallel/spatial.py) a conv that reads rows beyond
+    the shard takes them from the neighbouring ranks (``spatial.conv_halo``:
+    asymmetric for a strided conv) and convolves with no vertical padding."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        weight = self.weight.to(x.dtype)
+        kh, sh, ph = self.kernel_size[0], self.stride[0], self.padding[0]
+        if spatial.current() is None or (kh == 1 and sh == 1):
+            return self._conv_forward(x, weight, bias)
+        top, bottom = spatial.conv_halo(kh, sh, ph)
+        x = nchw(spatial.halo_rows(nhwc(x), top, bottom))
+        return F.conv2d(x, weight, bias, self.stride, (0, self.padding[1]), self.dilation,
+                        self.groups)
 
 
 def conv2d(c_in: int, c_out: int, k, stride: int = 1) -> Conv2d:
@@ -105,7 +125,23 @@ class InstanceNorm(nn.Module):
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nchw(instance_norm(nhwc(x), relu=self.relu))
+        if spatial.current() is None:
+            return nchw(instance_norm(nhwc(x), relu=self.relu))
+        x = nhwc(x)
+        return nchw(instance_norm_apply(x, global_instance_stats(x), self.relu))
+
+
+def global_instance_stats(x: torch.Tensor) -> torch.Tensor:
+    """Instance-norm statistics [B, 2, C] (mean, rsqrt(var + eps)) of a space
+    shard's rows x [B, h, W, C] NHWC over the whole frame: the local fp32
+    moments (K3's partial sums, kernels/norm.py ``instance_norm_sums``)
+    summed over the world, then the one-pass E[x^2] - E[x]^2 of the plain
+    version. Outside a shard, the statistics of x."""
+    sums = spatial.all_reduce_moments(instance_norm_sums(x))
+    m = float(x.shape[1] * x.shape[2] * spatial.space_world())
+    mean = sums[:, 0] / m
+    var = torch.clamp(sums[:, 1] / m - mean * mean, min=0.0)
+    return torch.stack([mean, torch.rsqrt(var + EPS)], dim=1)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -147,14 +183,26 @@ class BatchNorm2d(nn.BatchNorm2d):
 class GroupNorm(nn.GroupNorm):
     """flax's GroupNorm: statistics per (sample, group) over its channels and
     the spatial axes, eps 1e-5, computed in fp32 with fp32 parameters, the
-    result cast back to the input's dtype."""
+    result cast back to the input's dtype. The moments are per-(sample,
+    channel) fp32 sums, summed over the space shard's world (the identity
+    outside a shard) and over each group's channels, then flax's one-pass
+    variance E[x^2] - E[x]^2."""
 
     def __init__(self, num_groups: int, channels: int):
         super().__init__(num_groups, channels, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.num_groups, self.weight.float(), self.bias.float(),
-                         self.eps)
+        b, c = x.shape[:2]
+        xf = x.float()
+        sums = torch.stack([xf.sum(dim=(2, 3)), (xf * xf).sum(dim=(2, 3))], dim=1)
+        sums = spatial.all_reduce_moments(sums).reshape(b, 2, self.num_groups, -1).sum(-1)
+        m = float(x.shape[2] * x.shape[3] * spatial.space_world() * (c // self.num_groups))
+        mean = sums[:, 0] / m
+        var = torch.clamp(sums[:, 1] / m - mean * mean, min=0.0)
+        scale = torch.rsqrt(var + self.eps).repeat_interleave(c // self.num_groups, dim=1)
+        shift = mean.repeat_interleave(c // self.num_groups, dim=1)
+        y = (xf - shift[:, :, None, None]) * scale[:, :, None, None]
+        y = y * self.weight.float()[None, :, None, None] + self.bias.float()[None, :, None, None]
         return y.to(x.dtype)
 
 

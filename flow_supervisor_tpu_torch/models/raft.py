@@ -41,6 +41,15 @@ package (channels dx-major in every backend):
 - ``"auto"``: resolved from the images' device at each forward
   (``resolve_lookup_backend``): fused on the card, einsum elsewhere.
 
+Space-parallel evaluation (parallel/spatial.py): inside a shard, the
+forward takes this rank's rows of the padded pair (flow_init stays the
+whole frame's); coords0 starts at the rank's first row at 1/8 resolution,
+``build_corr`` gathers fmap2 whole, so every backend's lookup runs on the
+rank's queries unchanged, and ``iterate`` upsamples the whole frame
+(``_shard_upsample``): flow_up is the whole frame's on every rank, flow_low
+the rank's rows. The training forwards (``semi_forward``, ``unsup_forward``,
+``train_forward``) are not sharded.
+
 Public layout follows the JAX package: images [B, H, W, 3], flows
 [B, H, W, 2], coords (x, y). Parameters are held in ``param_dtype``: by
 default ``cfg.dtype``, cast once at construction (the JAX package keeps fp32
@@ -94,6 +103,7 @@ from flow_supervisor_tpu_torch.ops.coords import coords_grid, downsample_shape, 
 from flow_supervisor_tpu_torch.ops.corr import build_corr_pyramid_from_fmaps, corr_pyramid_lookup
 from flow_supervisor_tpu_torch.ops.pad import crop_bboxes, pad_bboxes
 from flow_supervisor_tpu_torch.ops.upsample import upsample_convex
+from flow_supervisor_tpu_torch.parallel import spatial
 
 
 def _crop_upsample(flow_low, mask, crop_yx8, hw8, out_size):
@@ -106,6 +116,19 @@ def _crop_upsample(flow_low, mask, crop_yx8, hw8, out_size):
     halo = crop_bboxes(xp, crop_yx8, (h8 + 2, w8 + 2))
     mask_c = crop_bboxes(mask, crop_yx8, (h8, w8))
     return upsample_convex(halo, mask_c, out_size, pre_padded=True)
+
+
+def _shard_upsample(flow_low, mask, out_w):
+    """The whole frame's x8 upsample of a space shard's low-res rows, on every
+    rank: convex from the rows plus a 1-row halo of the neighbouring ranks
+    (zero columns beside them, as the unsharded zero padding), gathered;
+    bilinear (no mask head) from the gathered field."""
+    if mask is None:
+        full = spatial.gather_rows(flow_low)
+        return resize_flow(full, (8 * full.shape[1], out_w), scaling=True)
+    xp = torch.nn.functional.pad(spatial.halo_rows(flow_low, 1, 1), (0, 0, 1, 1))
+    up = upsample_convex(xp, mask.float(), pre_padded=True) * 8.0
+    return spatial.gather_rows(up)[:, :, :out_w]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,7 +271,8 @@ class RAFT(nn.Module):
         "einsum" / "zero": per-level volumes [B, h8, w8, h2, w2] in cfg.corr_dtype."""
         cfg = self.cfg
         backend = resolve_lookup_backend(cfg.lookup_backend, fmap1.device)
-        fmap1, fmap2 = fmap1.to(cfg.dtype), fmap2.to(cfg.dtype)
+        # a space shard keeps its query rows of fmap1 and looks them up in all of fmap2
+        fmap1, fmap2 = fmap1.to(cfg.dtype), spatial.gather_rows(fmap2.to(cfg.dtype))
         if backend == "fused":
             return build_fused_pyramid(fmap1, fmap2, cfg.corr_levels)
         if backend in ("einsum", "zero"):
@@ -305,6 +329,8 @@ class RAFT(nn.Module):
                 return torch.utils.checkpoint.checkpoint(plain_block, *args, use_reentrant=False)
 
         def upsample(flow_low, mask):
+            if spatial.current() is not None:
+                return _shard_upsample(flow_low, mask, out_size[1])
             if mask is None:  # bilinear x8 with scaling (no mask head)
                 up = resize_flow(flow_low, out_size, scaling=True)
                 return up if crop is None else crop_bboxes(up, crop[0] * 8, crop[2])
@@ -356,10 +382,12 @@ class RAFT(nn.Module):
         pyramid = self.build_corr(fmap1, fmap2)
         net, inp = self.context(image1)
         h8, w8 = downsample_shape(h), downsample_shape(w)
-        coords0 = coords_grid(b, h8, w8, device=image1.device)
+        coords0 = coords_grid(b, h8, w8, device=image1.device, row0=spatial.first_row(h8))
         coords1 = coords0
-        if flow_init is not None:
-            coords1 = coords1 + resize_flow(flow_init.float(), (h8, w8), scaling=True)
+        if flow_init is not None:  # the full frame's, resized, then this shard's rows
+            full8 = (h8 * spatial.space_world(), w8)
+            init = resize_flow(flow_init.float(), full8, scaling=True)
+            coords1 = coords1 + spatial.local_rows(init)
         _, _, flows_up, flows_low = self.iterate(
             net, inp, pyramid, coords0, coords1, (h, w), iters, final_flow_only,
             attention=self.attention_map(inp),

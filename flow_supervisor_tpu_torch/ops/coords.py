@@ -8,10 +8,13 @@ from __future__ import annotations
 import torch
 
 
-def coords_grid(batch: int, ht: int, wd: int, device=None, dtype=torch.float32):
-    """[batch, ht, wd, 2] grid with g[..., 0] = x (col) and g[..., 1] = y (row)."""
+def coords_grid(batch: int, ht: int, wd: int, device=None, dtype=torch.float32,
+                row0: int = 0):
+    """[batch, ht, wd, 2] grid with g[..., 0] = x (col) and g[..., 1] = y (row),
+    the rows starting at ``row0`` (a space shard's first row,
+    parallel/spatial.py ``first_row``: query positions stay absolute)."""
     y, x = torch.meshgrid(
-        torch.arange(ht, device=device), torch.arange(wd, device=device),
+        torch.arange(row0, row0 + ht, device=device), torch.arange(wd, device=device),
         indexing="ij",
     )
     g = torch.stack([x, y], dim=-1).to(dtype)
@@ -25,6 +28,12 @@ def downsample_shape(size: int, factor: int = 8) -> int:
         s = -(-s // 2)
         f //= 2
     return s
+
+
+def initialize_coords(batch: int, ht: int, wd: int, device=None, dtype=torch.float32):
+    """(coords0, coords1) at 1/8 of an (ht, wd) image; flow = coords1 - coords0."""
+    c = coords_grid(batch, downsample_shape(ht), downsample_shape(wd), device, dtype)
+    return c, c
 
 
 def _resample_axis(im: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:

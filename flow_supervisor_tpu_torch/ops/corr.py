@@ -3,6 +3,9 @@
 
 - ``all_pairs_correlation``: corr[b, i, j, k, l] = <f1[b,i,j], f2[b,k,l]> / sqrt(C),
   accumulated in fp32.
+- ``build_corr_pyramid``: level i average-pools the full volume's target
+  dims by 2^i (kernel = stride, TF 'SAME', count-aware), each level from
+  the original volume; ``transpose_corr_volume`` swaps source and target.
 - ``build_corr_pyramid_from_fmaps``: level i correlates f1 with f2 average-pooled
   by 2^i (kernel = stride, TF 'SAME' padding, edge windows divide by their
   valid taps). Pooling commutes with the inner product, so this equals pooling
@@ -18,6 +21,9 @@
   bilinear combine (the plain versions behind the plane, fused and pallas
   lookup kernels); ``support_cotangent`` is the combine's transpose (the
   plain version behind the fused lookup's backward kernels).
+- ``combine_pyramid`` / ``corr_pyramid_lookup_combined``: every level side by
+  side in one plane, looked up by one pair of products for all levels
+  (one-hot supports with per-level validity, ``_masked_support``).
 - ``lookup_vjp_dvols``: the cotangent of the window lookup with respect to
   the per-query planes (JAX's ``corr_fused.lookup_vjp_dvols``, the backward
   of the plane and pallas lookups): each query's support cotangent written
@@ -63,6 +69,34 @@ def _avg_pool_fmap_same(fmap: torch.Tensor, k: int) -> torch.Tensor:
     summed = F.avg_pool2d(F.pad(x, pads), k, k, divisor_override=1)
     counts = F.avg_pool2d(F.pad(ones, pads), k, k, divisor_override=1)
     return (summed / counts).permute(0, 2, 3, 1).to(fmap.dtype)
+
+
+def _avg_pool_volume_same(vol: torch.Tensor, k: int) -> torch.Tensor:
+    """TF-'SAME' count-aware average pool with kernel = stride = k over the
+    last two (target) dims of a volume [B, h1, w1, h2, w2], in fp32, returned
+    in the volume's dtype."""
+    b, h1, w1, h2, w2 = vol.shape
+    pooled = _avg_pool_fmap_same(vol.reshape(b * h1 * w1, h2, w2, 1).float(), k)
+    return pooled.reshape(b, h1, w1, pooled.shape[1], pooled.shape[2]).to(vol.dtype)
+
+
+def build_corr_pyramid(vol: torch.Tensor, num_levels: int = 4) -> list[torch.Tensor]:
+    """[vol, pool_2(vol), pool_4(vol), ...]: each level pools the original
+    volume's target dims (not the previous level), as the reference does
+    (allfield.py:80-92). ``build_corr_pyramid_from_fmaps`` gives the same
+    levels from pooled feature maps."""
+    pyramid = [vol]
+    scale = 2
+    for _ in range(num_levels - 1):
+        pyramid.append(_avg_pool_volume_same(vol, scale))
+        scale *= 2
+    return pyramid
+
+
+def transpose_corr_volume(vol: torch.Tensor) -> torch.Tensor:
+    """Swap the (source, target) pixel axes: [B, H, W, h, w] -> [B, h, w, H, W]
+    (the reference's backward-direction volume, raft/unsup.py:122-127)."""
+    return vol.permute(0, 3, 4, 1, 2)
 
 
 def build_corr_pyramid_from_fmaps(
@@ -277,3 +311,64 @@ def lookup_vjp_dvols(
         row.scatter_(1, idx, d_sup.reshape(-1, sup * sup))
         out.append(row[:, : h2 * w2].reshape(-1, h2, w2).to(out_dtype or vol_dtype))
     return out
+
+
+# ---- the combined-plane lookup: one pair of products for all levels ----------
+
+
+def combine_pyramid(pyramid: list[torch.Tensor]) -> torch.Tensor:
+    """All levels side by side in one plane [B, h1, w1, Hmax, Wtot]: each
+    level's target rows zero-padded to level 0's, the columns concatenated.
+    The combined lookup selects columns by exact index with per-level
+    validity, so no gap columns are needed between levels."""
+    h0 = pyramid[0].shape[3]
+    return torch.cat([F.pad(v, (0, 0, 0, h0 - v.shape[3])) for v in pyramid], dim=-1)
+
+
+def _masked_support(pos: torch.Tensor, u_size: int, size: int, offset: int, radius: int,
+                    axis_len: int) -> torch.Tensor:
+    """One-hot [B, Q, u_size, axis_len] of positions pos [B, Q]: column
+    offset + s matches iff the level's support s = floor(pos) + u - radius
+    lies in [0, size). floor(pos) is clamped to [-(u_size + radius), size +
+    radius] first, which changes no match and keeps far-out coords from
+    overflowing the integer conversion."""
+    base = torch.clamp(torch.floor(pos), -(u_size + radius), size + radius).long()
+    s = base[..., None] + torch.arange(u_size, device=pos.device) - radius  # [B, Q, u]
+    target = torch.where((s >= 0) & (s < size), s + offset, torch.full_like(s, -1))
+    return (target[..., None] == torch.arange(axis_len, device=pos.device)).float()
+
+
+def corr_pyramid_lookup_combined(
+    combined: torch.Tensor, level_shapes, coords: torch.Tensor, radius: int = 4
+) -> torch.Tensor:
+    """The windows of ``corr_pyramid_lookup`` over ``combine_pyramid``'s plane
+    [B, h1, w1, Hmax, Wtot] with one pair of batched products for all
+    levels: the joint (L * (2r+2))^2 patch, then each level's diagonal block
+    combined bilinearly -> [B, h1, w1, L * (2r+1)^2] fp32, channels
+    dx-major. level_shapes: [(h2_l, w2_l)] per level; coords [B, h1, w1, 2]
+    at level 0. The first product takes the plane's dtype (each output is
+    one plane value), the second runs in fp32."""
+    b, h1, w1, hmax, wtot = combined.shape
+    k = 2 * radius + 1
+    q = h1 * w1
+    u_size = k + 1
+    rys, rxs, fracs = [], [], []
+    x_off = 0
+    for i, (hl, wl) in enumerate(level_shapes):
+        cl = coords.reshape(b, q, 2).float() / (2.0 ** i)
+        x, y = cl[..., 0], cl[..., 1]
+        rys.append(_masked_support(y, u_size, hl, 0, radius, hmax))
+        rxs.append(_masked_support(x, u_size, wl, x_off, radius, wtot))
+        fracs.append(((x - torch.floor(x))[..., None, None], (y - torch.floor(y))[..., None, None]))
+        x_off += wl
+    ry = torch.cat(rys, dim=2).to(combined.dtype)  # [B, Q, L * U, Hmax]
+    rx = torch.cat(rxs, dim=2)  # [B, Q, L * U, Wtot]
+    tmp = torch.matmul(ry, combined.reshape(b, q, hmax, wtot)).float()
+    patch_all = torch.matmul(tmp, rx.transpose(-1, -2))  # [B, Q, L * U (y), L * U (x)]
+    outs = []
+    for i, (fx, fy) in enumerate(fracs):
+        blk = patch_all[:, :, i * u_size:(i + 1) * u_size, i * u_size:(i + 1) * u_size]
+        out = ((1.0 - fy) * (1.0 - fx) * blk[:, :, :k, :k] + (1.0 - fy) * fx * blk[:, :, :k, 1:]
+               + fy * (1.0 - fx) * blk[:, :, 1:, :k] + fy * fx * blk[:, :, 1:, 1:])
+        outs.append(out.transpose(-1, -2).reshape(b, h1, w1, k * k))
+    return torch.cat(outs, dim=-1)

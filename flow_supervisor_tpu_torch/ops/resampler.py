@@ -38,3 +38,8 @@ def resampler(data: torch.Tensor, warp: torch.Tensor) -> torch.Tensor:
         + tap(x0 + 1.0, y0 + 1.0, dx * dy)
     )
     return out.to(data.dtype).reshape(out_shape)
+
+
+def resample_flow_lookup(source: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Warp ``source`` [B, H, W, C] by absolute target coords [B, H, W, 2] (x, y)."""
+    return resampler(source, coords)

@@ -4,7 +4,7 @@ on tiny shapes, held against the same step in one process on the whole
 batch.
 
     python -m flow_supervisor_tpu_torch.parallel.dryrun --world 2 [--device cpu]
-        [--kinds semi unsup baseline] [--backend gloo] [--cudnn]
+        [--kinds semi unsup baseline space] [--backend gloo] [--cudnn]
 
 The step kinds (``STEPS``), each on a global batch of ``world`` rows (one
 a rank) of noise images, 32x48 crops of 48x64 frames, fp32, random weights
@@ -15,6 +15,11 @@ from a seed with non-trivial batch-norm statistics and affine parameters:
   2 student and 1 teacher iterations, frozen batch norm;
 - ``unsup``: the Unsup step (census, smoothness, self-supervision; wang);
 - ``baseline``: the chairs Baseline step with unfrozen batch norm.
+
+``space`` is the space check (``run_space_check``, JAX's dryrun.py:211-223):
+a RAFT forward at the einsum lookup, 2 iterations, on one 8 * world * 2 x
+48 pair whose rows are sharded over the world (parallel/spatial.py),
+against one process, within ``SPACE_LIMIT``.
 
 The ranks are spawned with ``torch.multiprocessing`` and meet through a
 ``FileStore`` in a scratch directory (no network). Each rank saves its
@@ -303,11 +308,89 @@ def run_dryrun(world: int, kinds=("semi",), device_type: str = "cpu", backend=No
     return out
 
 
+# the space check (JAX's dryrun.py:211-223): RAFT at the einsum lookup, 2
+# iterations, H = 8 * world * 2, W = 48, one pair's rows over a world of n
+# ranks against one process; JAX's limit on the largest |d flow| (px)
+SPACE_LIMIT = 2e-4
+SPACE_W = 48
+
+
+def space_case(world: int, seed: int = 1):
+    """(model, image1, image2) on the CPU of the space check."""
+    import numpy as np
+
+    from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
+
+    model = RAFT(RAFTConfig(iters=2, lookup_backend="einsum"),
+                 generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    shape = (1, 8 * world * 2, SPACE_W, 3)
+    return (model, *(torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
+                     for _ in range(2)))
+
+
+def _space_rank(rank: int, world: int, device_type: str, backend, workdir: str) -> None:
+    """A rank of the space check: its rows of the pair through
+    ``spatial.spatial_forward``; saves the whole frame's flow."""
+    from flow_supervisor_tpu_torch.parallel import mesh, spatial
+
+    device = mesh.rank_device(device_type, rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        batch_invariant_cuda()
+    else:
+        batch_invariant_cpu()
+    mesh.init_world(world, rank, device, "file://" + os.path.join(workdir, "store"), backend)
+    try:
+        model, i1, i2 = space_case(world)
+        up, _ = spatial.spatial_forward(model.to(device))(i1.to(device), i2.to(device))
+        torch.save(up.cpu(), os.path.join(workdir, f"space_{rank}.pt"))
+    finally:
+        mesh.close_world()
+
+
+def run_space_check(world: int, device_type: str = "cpu", backend=None) -> dict:
+    """The space check over a world of ``world`` spawned ranks -> its
+    largest |d flow| against one process, whether every rank holds the same
+    flow, and ``ok`` (within ``SPACE_LIMIT``)."""
+    import torch.multiprocessing as mp
+
+    from flow_supervisor_tpu_torch.parallel import mesh
+
+    device = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    with tempfile.TemporaryDirectory(prefix="fst_space_") as workdir:
+        mp.spawn(_space_rank, args=(world, device_type, backend, workdir), nprocs=world)
+        ups = [torch.load(os.path.join(workdir, f"space_{r}.pt")) for r in range(world)]
+    model, i1, i2 = space_case(world)
+    # the reference as the ranks run (TF32 convs alone are 3e-4 px away on the card)
+    saved = (torch.get_num_threads(), torch.backends.mkldnn.enabled,
+             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.enabled)
+    if device_type == "cpu":
+        batch_invariant_cpu()
+    else:
+        batch_invariant_cuda()
+    try:
+        ref = model.to(device)(i1.to(device), i2.to(device),
+                               final_flow_only=True)["flow_up"][-1]
+    finally:
+        torch.set_num_threads(saved[0])
+        (torch.backends.mkldnn.enabled, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled) = saved[1:]
+    err = float((ups[0] - ref.cpu()).abs().max())
+    same = all(torch.equal(u, ups[0]) for u in ups[1:])
+    return {"dryrun": "space", "world": world, "device": device_type,
+            "backend": backend or mesh.backend_for(device, world), "hw": list(i1.shape[1:3]),
+            "max_abs_err": err, "limit": SPACE_LIMIT, "ranks_equal": same,
+            "ok": bool(same and err < SPACE_LIMIT)}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--world", type=int, default=2)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    p.add_argument("--kinds", nargs="+", default=["semi"], choices=sorted(STEPS))
+    p.add_argument("--kinds", nargs="+", default=["semi"], choices=sorted(STEPS) + ["space"],
+                   help="step kinds, and 'space': the space-parallel forward check")
     p.add_argument("--backend", choices=("nccl", "gloo"), default=None)
     p.add_argument("--lookup_backend", default="auto")
     p.add_argument("--cudnn", action="store_true",
@@ -317,11 +400,17 @@ def main(argv=None) -> int:
         print("dryrun needs a CUDA device; none is available (pass --device cpu)",
               file=sys.stderr)
         return 2
-    res = run_dryrun(args.world, args.kinds, args.device, args.backend, args.lookup_backend,
-                     args.cudnn)
+    steps = [k for k in args.kinds if k != "space"]
+    res = (run_dryrun(args.world, steps, args.device, args.backend, args.lookup_backend,
+                      args.cudnn) if steps else {})
     for kind, err in res.items():
         print(json.dumps({"dryrun": kind, **err}), flush=True)
-    return 0 if all(e["ok"] for e in res.values()) else 1
+    ok = all(e["ok"] for e in res.values())
+    if "space" in args.kinds:
+        space = run_space_check(args.world, args.device, args.backend)
+        print(json.dumps(space), flush=True)
+        ok = ok and space["ok"]
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -143,7 +143,8 @@ def main() -> None:
                 res["variants"][f"{vname}/{'k6' if mode else 'k7'}"] = {
                     "ok": ok, "max_abs_err": float(err.max())}
         if k6:
-            fns = {"library": lambda: corr_fused.corr_fused_all(f1, f2s, coords, RADIUS, f1.dtype)}
+            fns = {"library": lambda: corr_fused.corr_fused_all(f1, f2s, coords, RADIUS, f1.dtype,
+                                                               query_hw=(h1, w1))}
         else:
             fns = {"library": lambda: [corr_fused.corr_fused_level(f1, f2, lvl, coords, RADIUS, out,
                                                                    (h1, w1))

@@ -159,6 +159,52 @@ def test_cuda_k3_matches_plain_and_repeats(cuda, shape, dtype):
     assert torch.equal(norm.instance_norm_stats(x), st)
 
 
+# a space shard's encoder norms (models/layers.py ``global_instance_stats``):
+# each rank's rows of the fnet's three stages at 448x1024 over 2 ranks, and
+# C = 36; on the vector body, and on the scalar one (x one element off a
+# 16-byte boundary). K3's partial sums summed in PyTorch against the plain
+# fp32 sums, within 1e-5 of the sums of |x| and x^2 (another order only)
+SHARD_NORM_SHAPES = [(2, 112, 512, 64), (2, 56, 256, 96), (2, 28, 128, 128), (2, 28, 128, 36)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHARD_NORM_SHAPES, ids=[str(s) for s in SHARD_NORM_SHAPES])
+def test_cuda_k3_sums_of_a_space_shard_match_plain(cuda, shape, dtype, offset):
+    n = int(np.prod(shape))
+    x = _norm_input((n + offset,), dtype, cuda, 73)[offset:].view(shape)
+    counts = (norm.stats_launches, norm.vector_launches)
+    got = norm.instance_norm_sums(x)
+    assert (norm.stats_launches, norm.vector_launches) == (
+        counts[0] + 1, counts[1] + norm.vector_body(x))
+    assert norm.vector_body(x) == (offset == 0 and shape[3] % (16 // x.element_size()) == 0)
+    want = norm.instance_norm_sums_plain(x)
+    scale = norm.instance_norm_sums_plain(x.abs())
+    assert got.shape == want.shape == (shape[0], 2, shape[3]) and got.dtype == torch.float32
+    rel = float(((got - want).abs() / scale).max())
+    assert rel <= 1e-5, rel
+
+
+# K5 on a space shard's rows plus its 1-row halo (models/encoders.py): the
+# fnet stages' convs at 448x1024 over 2 ranks, 112, 56 and 28 rows + 2
+SHARD_CONV_SHAPES = [(2, 114, 512, 64, 64), (2, 58, 256, 96, 96), (2, 30, 128, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHARD_CONV_SHAPES)
+def test_cuda_k5_of_a_space_shard_matches_plain(cuda, shape, dtype):
+    x, k, bias = _conv_inputs(shape, dtype, cuda, 24)
+    n, tc = conv3x3.bare_launches, conv3x3.tc_launches
+    y = conv3x3.conv3x3_bare(x, k, bias)
+    assert conv3x3.bare_launches == n + 1
+    assert conv3x3.tc_launches == tc + (dtype == torch.bfloat16)
+    y_ref = conv3x3.conv3x3_bare_plain(x, k, bias)
+    rtol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=rtol, atol=1e-5)
+
+
 # vector body: C a multiple of 8 (bf16) or 4 (fp32) channels and x 16-byte
 # aligned; x offset by one element from an allocation takes the scalar body
 @pytest.mark.cuda
@@ -197,13 +243,41 @@ def _fused_inputs(b, c, dtype, dev, seed):
     return pyr, torch.from_numpy(coords).reshape(-1, 2).to(dev)
 
 
+def _grid(pyr):
+    """The queries' grid of these cases: the whole level-0 map."""
+    return tuple(pyr.f2s[0].shape[1:3])
+
+
 # C=64: 16-byte loads; C=36: the scalar path (C % 8 != 0); C=320: two 256-channel chunks
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_cuda_k6_k7_of_a_space_shard_match_plain(cuda, dtype, batch):
+    """A space shard's queries (the last 8 of 16 rows at 1/8) looked up in
+    the whole pooled f2 on the shard's own (8, 24) query grid: K6 at B=1,
+    K7 a level at B=2, against the plain version, with smooth coords (the
+    tile path) at the queries' absolute rows."""
+    rng = np.random.default_rng(7)
+    h, w, c = 16, 24, 64
+    f1 = torch.from_numpy(rng.normal(0, 1, (batch, 8, w, c)).astype(np.float32)).to(cuda, dtype)
+    f2 = torch.from_numpy(rng.normal(0, 1, (batch, h, w, c)).astype(np.float32)).to(cuda, dtype)
+    pyr = corr_fused.build_fused_pyramid(f1, f2, 4)
+    ys, xs = np.meshgrid(np.arange(8, 16), np.arange(w), indexing="ij")
+    grid = np.broadcast_to(np.stack([xs, ys], -1), (batch, 8, w, 2))
+    coords = torch.from_numpy((grid + rng.normal(0, 2, grid.shape)).astype(np.float32)).to(cuda)
+    got = corr_fused.corr_pyramid_lookup_fused(pyr, coords, R, torch.float32)
+    want = corr_fused.corr_fused_plain(pyr.f1, pyr.f2s, coords.reshape(-1, 2), R, torch.float32)
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
+    torch.testing.assert_close(got.reshape(want.shape), want, **tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [64, 36, 320])
 def test_cuda_k6_matches_plain(cuda, dtype, c):
     pyr, coords = _fused_inputs(1, c, dtype, cuda, 12)
-    got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, R, dtype).float()
+    got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, R, dtype,
+                                        query_hw=_grid(pyr)).float()
     want = corr_fused.corr_fused_plain(pyr.f1, pyr.f2s, coords, R, torch.float32)
     # fp32: only the summation order of C products differs
     tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-5, rtol=1e-2)
@@ -266,7 +340,8 @@ def test_cuda_k6_k7_tile_and_per_query_paths_match_plain(cuda, coords_kind, dtyp
     assert tile > 0 and (per_query > 0) == (coords_kind != "smooth")
     k2 = (2 * R + 1) ** 2
     if b == 1:
-        got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, R, dtype)
+        got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, R, dtype,
+                                        query_hw=_grid(pyr))
     else:
         got = torch.full((coords.shape[0], 4 * k2), float("nan"), device=cuda, dtype=dtype)
         for lvl, f2 in enumerate(pyr.f2s):
@@ -346,7 +421,7 @@ def _k9_inputs_50x90(b, dtype, dev, seed, coords, c=64):
 
 def _paths(pyr, coords):
     """(tiles on the shared-memory path, tiles adding per query) over all levels."""
-    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R)
+    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R, query_hw=_grid(pyr))
     return (sum(int(t.tile_path.sum()) for t in tiles),
             sum(int(((t.queries > 0) & ~t.tile_path).sum()) for t in tiles))
 
@@ -376,7 +451,7 @@ def test_cuda_k9_box_beyond_the_limit_adds_per_query(cuda):
     coords = torch.from_numpy(np.stack([rng.uniform(-20, 110, 4500), rng.uniform(-20, 70, 4500)], 1)
                               .astype(np.float32)).to(cuda)
     pyr, coords, g = _k9_inputs_50x90(1, torch.float32, cuda, 43, coords)
-    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R)
+    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R, query_hw=_grid(pyr))
     assert not bool(tiles[0].tile_path.any()) and not bool(tiles[1].tile_path.any())
     _check_k9(pyr, coords, g, torch.float32)
 
@@ -434,7 +509,7 @@ def test_cuda_k8_box_beyond_the_limit_goes_per_query(cuda, dtype):
     coords = torch.from_numpy(np.stack([rng.uniform(-20, 110, 4500), rng.uniform(-20, 70, 4500)], 1)
                               .astype(np.float32)).to(cuda)
     pyr, coords, g = _k9_inputs_50x90(1, dtype, cuda, 45, coords)
-    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R)
+    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R, query_hw=_grid(pyr))
     assert not bool(tiles[0].tile_path.any()) and bool(tiles[3].tile_path.any())
     got = corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, R)
     want = corr_fused.bwd_df1_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g, R)
@@ -458,7 +533,7 @@ def test_cuda_k8_per_query_body_at_more_shapes(cuda, dtype, b, h8, w8, c):
     f2 = torch.from_numpy(rng.normal(0, 1, (b, h8, w8, c)).astype(np.float32)).to(cuda, dtype)
     pyr = corr_fused.build_fused_pyramid(f1, f2, 4)
     g = torch.from_numpy(rng.normal(0, 1, (q, 4 * (2 * R + 1) ** 2)).astype(np.float32)).to(cuda, dtype)
-    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R)
+    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R, query_hw=_grid(pyr))
     assert not bool(tiles[0].tile_path.any())
     got = corr_fused.bwd_df1(pyr.f1, pyr.f2s, coords, g, R)
     want = corr_fused.bwd_df1_plain(pyr.f1.float(), [f.float() for f in pyr.f2s], coords, g, R)
@@ -703,7 +778,7 @@ def _r3_case(b, c, dtype, dev, coords_kind, seed):
     """_tile_case's 50x90 grid and coords; and the paths of K6-K9's tiles at
     radius 3: (tile path, per query) over all levels."""
     pyr, coords = _tile_case(b, c, dtype, dev, coords_kind, seed)
-    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R3)
+    tiles = corr_fused.lookup_tiles(pyr.f1, pyr.f2s, coords, R3, query_hw=_grid(pyr))
     return pyr, coords, (sum(int(t.tile_path.sum()) for t in tiles),
                          sum(int(((t.queries > 0) & ~t.tile_path).sum()) for t in tiles))
 
@@ -719,7 +794,8 @@ def test_cuda_k6_k7_at_radius_3_match_plain(cuda, coords_kind, dtype, b, c):
     assert tile > 0 and (per_query > 0) == (coords_kind != "smooth")
     k2 = (2 * R3 + 1) ** 2
     if b == 1:
-        got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, R3, dtype)
+        got = corr_fused.corr_fused_all(pyr.f1, pyr.f2s, coords, R3, dtype,
+                                        query_hw=_grid(pyr))
     else:
         got = torch.full((coords.shape[0], 4 * k2), float("nan"), device=cuda, dtype=dtype)
         for lvl, f2 in enumerate(pyr.f2s):

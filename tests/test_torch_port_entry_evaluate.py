@@ -13,7 +13,7 @@
 - The port alone: the CLI on a port checkpoint directory (a GMA flow
   supervisor: ``args.yaml`` and ``ckpt_<step>.pt``) equals the
   ``Evaluator`` run in the process on the same model, ``--step`` picks the
-  checkpoint, ``--space_parallel 2`` is refused; ``ckpt_tool list`` and
+  checkpoint (``--space_parallel``: tests/test_torch_space_eval.py); ``ckpt_tool list`` and
   ``clean`` (latest and ``--step``) round-trip, and the cleaned directory
   evaluates to the same numbers.
 """
@@ -147,8 +147,6 @@ def test_evaluate_cli_reads_a_port_checkpoint_directory(port_ckpt, capsys):
     assert "clean_teacher_epe" in got and "final_student_epe_5px" in got
     _close(got, _in_process(models[5]))
     _close(_cli_json(evaluate.main, argv + ["--step", "2"], capsys), _in_process(models[2]))
-    assert evaluate.main(argv + ["--space_parallel", "2"]) == 2
-    assert "space_parallel > 1" in capsys.readouterr().err
 
 
 def test_ckpt_tool_list_and_clean_round_trip(port_ckpt, tmp_path, capsys):

@@ -168,11 +168,6 @@ def test_evaluator_matches_jax(root, models, jax_evaluators, kind):
     _check_close(got, want)
 
 
-def test_space_parallel_is_not_ported(models):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Evaluator(models[2], space_parallel=2)
-
-
 def test_submission_writers_match_jax(root, models, jax_evaluators, tmp_path):
     from flow_supervisor_tpu import submission as jsub
     from flow_supervisor_tpu.data import io as jio

@@ -209,6 +209,7 @@ def test_no_source_file_imports_jax():
         paths += [os.path.join(root, n) for n in files
                   if n.endswith((".py", ".cu", ".cuh", ".cc"))]
     assert os.path.join(PKG, "models", "gma.py") in paths
+    assert os.path.join(PKG, "parallel", "spatial.py") in paths
     assert os.path.join(PKG, "native", "fst_io.cc") in paths
     offenders = []
     for path in paths:

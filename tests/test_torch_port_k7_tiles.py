@@ -77,16 +77,18 @@ def _combine(sup, fx, fy):
     return win.transpose(1, 2).reshape(len(sup), K * K)
 
 
-def _replay(f1, f2s, coords, r=R):
-    """[B*Q, L * K^2] by the kernels' algorithm at radius r; also the number
-    of tiles on each path."""
+def _replay(f1, f2s, coords, r=R, query_hw=None):
+    """[B*Q, L * K^2] by the kernels' algorithm at radius r over the query
+    grid query_hw (default the level-0 map); also the number of tiles on
+    each path."""
     SUP, K = 2 * r + 2, 2 * r + 1
     b, q, c = f1.shape
-    h, w = f2s[0].shape[1], f2s[0].shape[2]
+    h, w = query_hw or (f2s[0].shape[1], f2s[0].shape[2])
     rows = f1.reshape(b * q, c)
     out = torch.zeros(b * q, LEVELS * K * K)
     paths = {"tile": 0, "per_query": 0}
-    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, r))):
+    tiles = corr_fused.lookup_tiles(f1, f2s, coords, r, query_hw=(h, w))
+    for lvl, (f2, tb) in enumerate(zip(f2s, tiles)):
         h2, w2 = f2.shape[1], f2.shape[2]
         bx, by, fx, fy, valid = _windows(coords, lvl, h2, w2, r)
         for bi, tyi, txi in np.ndindex(*tb.queries.shape):
@@ -149,7 +151,8 @@ def _check_boxes(b, kind, hw, r):
     f1, f2s, coords = _inputs(b, *hw, c=16, kind=kind, seed=b + 10 * len(kind) + hw[0])
     h, w = hw
     SUP = 2 * r + 2
-    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, r))):
+    tiles = corr_fused.lookup_tiles(f1, f2s, coords, r, query_hw=(h, w))
+    for lvl, (f2, tb) in enumerate(zip(f2s, tiles)):
         h2, w2 = f2.shape[1], f2.shape[2]
         bx, by, _, _, valid = _windows(coords, lvl, h2, w2, r)
         some = tb.queries > 0
@@ -175,3 +178,24 @@ def test_k7_tile_boxes_hold_every_tap_and_stay_in_the_map(b, kind, hw):
 @pytest.mark.parametrize("b,kind,hw", R3_CASES)
 def test_k7_tile_boxes_hold_every_tap_and_stay_in_the_map_at_radius_3(b, kind, hw):
     _check_boxes(b, kind, hw, 3)
+
+
+@pytest.mark.parametrize("b,kind", [(1, "smooth"), (2, "random")])
+def test_k7_tile_replay_of_a_space_shard(b, kind):
+    """A space shard's queries (rows 8-15 of a 16x21 map, models/raft.py
+    under parallel/spatial.py) against the whole pooled f2: the tiles are
+    8x8 of the shard's own (8, 21) grid, every query's support comes from
+    its coords, and the shard's outputs are the whole map's rows."""
+    h, w = 16, 21
+    f1, f2s, coords = _inputs(b, h, w, c=16, kind=kind, seed=3 + b)
+    rows = slice(8 * w, 16 * w)
+    f1s = f1[:, rows].contiguous()
+    cs = coords.reshape(b, h * w, 2)[:, rows].reshape(-1, 2).contiguous()
+    tiles = corr_fused.lookup_tiles(f1s, f2s, cs, R, query_hw=(8, w))
+    assert tiles[0].queries.shape == (b, 1, 3)
+    got, paths = _replay(f1s, f2s, cs, R, (8, w))
+    want = corr_fused.corr_fused_plain(f1s, f2s, cs, R)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    whole = corr_fused.corr_fused_plain(f1, f2s, coords, R).reshape(b, h * w, -1)[:, rows]
+    torch.testing.assert_close(want, whole.reshape(want.shape), atol=1e-5, rtol=0)
+    assert paths["tile"] > 0

@@ -86,7 +86,8 @@ def _replay(f1, f2s, coords, g, operand="fp32", r=R):
     sup = 2 * r + 2
     uu, vv = torch.meshgrid(torch.arange(sup), torch.arange(sup), indexing="ij")
     acc = torch.zeros(b * q, c)
-    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, r))):
+    tiles = corr_fused.lookup_tiles(f1, f2s, coords, r, query_hw=(h, w))
+    for lvl, (f2, tb) in enumerate(zip(f2s, tiles)):
         h2, w2 = f2.shape[1], f2.shape[2]
         bx, by, valid, dsup = _level_supports(f1, f2, coords, g, lvl, r)
         for bi, tyi, txi in np.ndindex(*tb.queries.shape):
@@ -138,7 +139,7 @@ def _check(got, want, hw):
 def test_k8_tile_replay_matches_plain(b, kind, hw, c):
     f1, f2s, coords, g = _inputs(b, *hw, c=c, kind=kind, seed=_seed(b, kind, hw, c))
     _check(_replay(f1, f2s, coords, g), corr_fused.bwd_df1_plain(f1, f2s, coords, g, R), hw)
-    tiles = corr_fused.lookup_tiles(f1, f2s, coords, R)
+    tiles = corr_fused.lookup_tiles(f1, f2s, coords, R, query_hw=hw)
     if hw == (40, 48) and kind in ("random", "far"):  # both paths run
         assert not tiles[0].tile_path[tiles[0].queries > 0].all()
         assert tiles[3].tile_path.any()
@@ -153,7 +154,7 @@ def test_k8_tile_replay_matches_plain(b, kind, hw, c):
 def test_k8_tile_replay_matches_plain_at_radius_3(b, kind, hw, c):
     f1, f2s, coords, g = _inputs(b, *hw, c=c, kind=kind, seed=_seed(b, kind, hw, c) + 3, r=3)
     _check(_replay(f1, f2s, coords, g, r=3), corr_fused.bwd_df1_plain(f1, f2s, coords, g, 3), hw)
-    tiles = corr_fused.lookup_tiles(f1, f2s, coords, 3)
+    tiles = corr_fused.lookup_tiles(f1, f2s, coords, 3, query_hw=hw)
     if kind == "random":
         assert not tiles[0].tile_path[tiles[0].queries > 0].all()
     assert any(bool(t.tile_path.any()) for t in tiles)

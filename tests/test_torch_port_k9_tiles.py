@@ -77,7 +77,8 @@ def _replay(f1, f2s, coords, g, r=R):
     sup = 2 * r + 2
     uu, vv = torch.meshgrid(torch.arange(sup), torch.arange(sup), indexing="ij")
     out = []
-    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, r))):
+    tiles = corr_fused.lookup_tiles(f1, f2s, coords, r, query_hw=(h, w))
+    for lvl, (f2, tb) in enumerate(zip(f2s, tiles)):
         h2, w2 = f2.shape[1], f2.shape[2]
         acc = torch.zeros(f2.shape, dtype=torch.float32)
         bx, by, valid, dsup = _level_supports(f1, f2, coords, g, lvl, r)
@@ -124,7 +125,7 @@ def _check_replay(b, kind, hw, r):
     for lvl, (a, wl) in enumerate(zip(got, want)):
         atol = 1e-5 if hw == (13, 21) else 1e-5 + 1e-6 * float(wl.abs().max())
         torch.testing.assert_close(a, wl, atol=atol, rtol=0, msg=f"level {lvl}")
-    tiles = corr_fused.lookup_tiles(f1, f2s, coords, r)
+    tiles = corr_fused.lookup_tiles(f1, f2s, coords, r, query_hw=hw)
     if hw == (40, 48):  # both paths run
         assert not tiles[0].tile_path[tiles[0].queries > 0].all()
         assert tiles[3].tile_path.any()
@@ -146,7 +147,8 @@ def _check_boxes(b, kind, hw, r):
     f1, f2s, coords, g = _inputs(b, *hw, c=8, kind=kind, seed=b + 10 * len(kind) + hw[0], r=r)
     h, w = hw
     SUP = 2 * r + 2
-    for lvl, (f2, tb) in enumerate(zip(f2s, corr_fused.lookup_tiles(f1, f2s, coords, r))):
+    tiles = corr_fused.lookup_tiles(f1, f2s, coords, r, query_hw=(h, w))
+    for lvl, (f2, tb) in enumerate(zip(f2s, tiles)):
         h2, w2 = f2.shape[1], f2.shape[2]
         bx, by, valid, _ = _level_supports(f1, f2, coords, g, lvl, r)
         some = tb.queries > 0

@@ -157,11 +157,11 @@ def test_k6_k7_wrappers_reject_bad_layouts():
     f1, f2 = torch.zeros(1, 8, 16), torch.zeros(1, 2, 4, 16)
     coords = torch.zeros(8, 2)
     with pytest.raises(ValueError):
-        corr_fused.corr_fused_all(f1, [torch.zeros(1, 2, 4, 8)], coords)  # channel mismatch
+        corr_fused.corr_fused_all(f1, [torch.zeros(1, 2, 4, 8)], coords, query_hw=(2, 4))  # channel mismatch
     with pytest.raises(ValueError):
-        corr_fused.corr_fused_all(f1, [f2.to(torch.bfloat16)], coords)  # dtype mismatch
+        corr_fused.corr_fused_all(f1, [f2.to(torch.bfloat16)], coords, query_hw=(2, 4))  # dtype mismatch
     with pytest.raises(ValueError):
-        corr_fused.corr_fused_all(f1, [f2], torch.zeros(7, 2))
+        corr_fused.corr_fused_all(f1, [f2], torch.zeros(7, 2), query_hw=(2, 4))
     with pytest.raises(ValueError):
         corr_fused.corr_fused_level(f1, f2, 1, coords, R, torch.zeros(8, 81))  # stripe 1 too wide
     with pytest.raises(ValueError):
