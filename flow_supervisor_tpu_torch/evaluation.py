@@ -15,7 +15,10 @@ optional warm start, and the standing validation of training.
   (``rec.extra[0]``), the previous pair's final low-resolution flow, at the
   padded 1/8 size, is splatted forward on the host and starts the next
   pair. It also reports ``pairs_per_sec`` and the host time per pair spent
-  decoding, warm-starting and in the forward (which waits for the device).
+  decoding, warm-starting and in the forward (padding, the model's dispatch
+  and the flows' copies back, which wait for the device), read from the
+  spans ``fst.eval.decode``, ``fst.warm_start``, ``fst.eval.pad``,
+  ``fst.eval.forward`` and ``fst.eval.fetch`` (tracing.py).
 - ``eval_iters_policy``, ``standing_validation_sets``,
   ``make_train_validator``: the training loop's standing validation.
 
@@ -39,6 +42,7 @@ from flow_supervisor_tpu_torch.metrics import dense_metrics, sparse_metrics
 from flow_supervisor_tpu_torch.ops.coords import coords_grid, downsample_shape
 from flow_supervisor_tpu_torch.ops.pad import pad_spec_for
 from flow_supervisor_tpu_torch.parallel import mesh, spatial
+from flow_supervisor_tpu_torch.tracing import span
 from flow_supervisor_tpu_torch.utils.warm_start import forward_interpolate
 
 
@@ -129,29 +133,38 @@ class Evaluator:
 
     @torch.no_grad()
     def predict(self, img1: np.ndarray, img2: np.ndarray, mode: str,
-                flow_init: Optional[np.ndarray] = None):
+                flow_init: Optional[np.ndarray] = None, host: Optional[dict] = None):
         """One pair: ({"student": flow [1, H, W, 2], and "teacher" with the
         teacher split}, the student's final low flow [h8, w8, 2] at the padded
-        1/8 size), numpy float32. flow_init: [h8, w8, 2] at that size."""
+        1/8 size), numpy float32. flow_init: [h8, w8, 2] at that size.
+        ``host``: adds the host seconds of the pair's ``pad``, ``forward``
+        and ``fetch`` spans."""
         device = next(self.model.parameters()).device
-        spec = pad_spec_for(img1.shape[0], img1.shape[1], mode=mode, multiple=self.pad_bucket)
-        x1, x2 = _padded(img1, spec, device), _padded(img2, spec, device)
-        init = None
-        if flow_init is not None:
-            init = torch.from_numpy(np.asarray(flow_init, np.float32)[None]).to(device)
-        results = {}
+        with span("fst.eval.pad", host):
+            spec = pad_spec_for(img1.shape[0], img1.shape[1], mode=mode,
+                                multiple=self.pad_bucket)
+            x1, x2 = _padded(img1, spec, device), _padded(img2, spec, device)
+            init = None
+            if flow_init is not None:
+                init = torch.from_numpy(np.asarray(flow_init, np.float32)[None]).to(device)
+        tea = None
         with spatial.shard(x1.shape[1], x1.shape[2]) if self.space_parallel > 1 \
                 else contextlib.nullcontext():
             x1, x2 = spatial.local_rows(x1), spatial.local_rows(x2)
-            if self.use_teacher:
-                stu, tea, low = self._teacher_forward(x1, x2, init)
+            with span("fst.eval.forward", host):
+                if self.use_teacher:
+                    stu, tea, low = self._teacher_forward(x1, x2, init)
+                else:
+                    out = self.model(x1, x2, flow_init=init, iters=self.iters,
+                                     final_flow_only=True)
+                    stu, low = out["flow_up"][-1], out["flow_low"][-1]
+                low = spatial.gather_rows(low)
+        with span("fst.eval.fetch", host):
+            results = {}
+            if tea is not None:
                 results["teacher"] = _unpad(tea.float().cpu().numpy(), spec)
-            else:
-                out = self.model(x1, x2, flow_init=init, iters=self.iters, final_flow_only=True)
-                stu, low = out["flow_up"][-1], out["flow_low"][-1]
-            low = spatial.gather_rows(low)
-        results["student"] = _unpad(stu.float().cpu().numpy(), spec)
-        return results, low[0].float().cpu().numpy()
+            results["student"] = _unpad(stu.float().cpu().numpy(), spec)
+            return results, low[0].float().cpu().numpy()
 
     def evaluate(
         self, records: Iterable[FlowRecord], sparse: bool = False, warm_start: bool = False
@@ -168,25 +181,20 @@ class Evaluator:
 
     def _evaluate(self, records, sparse, warm_start):
         lists: dict[str, list[float]] = {}
-        host = {"decode": 0.0, "warm_start": 0.0, "forward": 0.0}
+        host = dict.fromkeys(("decode", "warm_start", "pad", "forward", "fetch"), 0.0)
         prev_scene, prev_low = None, None
         n_pairs = 0
         mode = "kitti" if sparse else "sintel"
         t0 = time.perf_counter()
         for rec in records:
-            t = time.perf_counter()
-            img1, img2, flow_gt, valid = load_record(rec)
-            host["decode"] += time.perf_counter() - t
+            with span("fst.eval.decode", host):
+                img1, img2, flow_gt, valid = load_record(rec)
             scene = rec.extra[0] if rec.extra else None
             flow_init = None
-            t = time.perf_counter()
             if warm_start and prev_low is not None and scene == prev_scene:
-                flow_init = forward_interpolate(prev_low)
-            host["warm_start"] += time.perf_counter() - t
+                flow_init = forward_interpolate(prev_low, host)
             prev_scene = scene
-            t = time.perf_counter()
-            results, prev_low = self.predict(img1, img2, mode, flow_init)
-            host["forward"] += time.perf_counter() - t
+            results, prev_low = self.predict(img1, img2, mode, flow_init, host)
             n_pairs += 1
             gt = torch.from_numpy(flow_gt[None])
             for name, pred in results.items():
@@ -200,6 +208,8 @@ class Evaluator:
         out = {k: float(np.mean(v)) for k, v in lists.items()}
         if n_pairs:
             out["pairs_per_sec"] = n_pairs / max(time.perf_counter() - t0, 1e-9)
+            # "forward": the whole of predict, padding and the copies back included
+            host["forward"] += host.pop("pad") + host.pop("fetch")
             out.update({f"{k}_ms_per_pair": 1e3 * v / n_pairs for k, v in host.items()})
         return out
 

@@ -46,6 +46,7 @@ from torch import nn
 from flow_supervisor_tpu_torch.models.layers import Conv2d, nchw, nhwc
 from flow_supervisor_tpu_torch.parallel import spatial
 from flow_supervisor_tpu_torch.parallel.spatial import first_row
+from flow_supervisor_tpu_torch.tracing import span
 from flow_supervisor_tpu_torch.models.update import (
     BasicMotionEncoder,
     FlowHead,
@@ -148,6 +149,7 @@ class Aggregate(nn.Module):
         self.project = _conv1x1(inner, dim) if inner != dim else None
         self.gamma = nn.Parameter(torch.zeros(1))
 
+    @span("fst.aggregate")
     def forward(self, attn: torch.Tensor, fmap: torch.Tensor) -> torch.Tensor:
         """attn [B, heads, N, N], fmap NCHW [B, dim, h, w] -> fmap + gamma *
         (the attention-weighted v, projected to dim), NCHW in fmap's dtype."""

@@ -104,6 +104,7 @@ from flow_supervisor_tpu_torch.ops.corr import build_corr_pyramid_from_fmaps, co
 from flow_supervisor_tpu_torch.ops.pad import crop_bboxes, pad_bboxes
 from flow_supervisor_tpu_torch.ops.upsample import upsample_convex
 from flow_supervisor_tpu_torch.parallel import spatial
+from flow_supervisor_tpu_torch.tracing import span
 
 
 def _crop_upsample(flow_low, mask, crop_yx8, hw8, out_size):
@@ -254,17 +255,20 @@ class RAFT(nn.Module):
         """[B, H, W, 3] in [0, 1] -> normalized NCHW (channels_last) in cfg.dtype."""
         return nchw(2.0 * image.to(self.cfg.dtype) - 1.0)
 
+    @span("fst.features")
     def features(self, image1: torch.Tensor, image2: torch.Tensor):
         """fnet over the concatenated pair -> (fmap1, fmap2) NHWC."""
         fmaps = nhwc(self.fnet(self._images(torch.cat([image1, image2], dim=0))))
         return torch.chunk(fmaps, 2, dim=0)
 
+    @span("fst.context")
     def context(self, image1: torch.Tensor):
         """cnet -> (net = tanh(hidden), inp = relu(context)), NCHW."""
         out = self.cnet(self._images(image1))
         net, inp = torch.split(out, [self.cfg.hidden_dim, self.cfg.context_dim], dim=1)
         return torch.tanh(net), torch.relu(inp)
 
+    @span("fst.build_corr")
     def build_corr(self, fmap1: torch.Tensor, fmap2: torch.Tensor):
         """"fused": the factors (f1, pooled f2 per level) in cfg.dtype;
         "plane" / "pallas": per-level planes [B*h8*w8, h2, w2] in cfg.corr_dtype;
@@ -279,6 +283,7 @@ class RAFT(nn.Module):
             return build_corr_pyramid_from_fmaps(fmap1, fmap2, cfg.corr_levels, cfg.corr_dtype)
         return build_plane_pyramid(fmap1, fmap2, cfg.corr_levels, cfg.corr_dtype)
 
+    @span("fst.lookup")
     def lookup(self, pyramid, coords1: torch.Tensor) -> torch.Tensor:
         """Window channels [B, h8, w8, L * (2r+1)^2] in cfg.dtype at coords1."""
         cfg = self.cfg
@@ -295,6 +300,7 @@ class RAFT(nn.Module):
             return (zeros + torch.sum(coords1) * 0.0).to(cfg.dtype)
         return corr_pyramid_lookup_plane(pyramid, coords1, cfg.corr_radius, cfg.dtype)
 
+    @span("fst.attention")
     def attention_map(self, inp: torch.Tensor) -> Optional[torch.Tensor]:
         """GMA's attention map [B, heads, N, N] over the relu'd context ``inp``
         (NCHW), in cfg.dtype, computed once per forward; None for the other
@@ -328,6 +334,7 @@ class RAFT(nn.Module):
             def block(*args):  # JAX's nn.remat(block)
                 return torch.utils.checkpoint.checkpoint(plain_block, *args, use_reentrant=False)
 
+        @span("fst.upsample")
         def upsample(flow_low, mask):
             if spatial.current() is not None:
                 return _shard_upsample(flow_low, mask, out_size[1])
@@ -343,7 +350,8 @@ class RAFT(nn.Module):
             coords1 = coords1.detach()
             corr = self.lookup(pyramid, coords1)
             flow = (coords1 - coords0).to(cfg.dtype)
-            net, up_mask, delta = block(net, inp, nchw(corr), nchw(flow), *extra)
+            with span("fst.update"):
+                net, up_mask, delta = block(net, inp, nchw(corr), nchw(flow), *extra)
             coords1 = coords1 + nhwc(delta).float()
             flow_low = coords1 - coords0
             lows.append(flow_low)
@@ -375,6 +383,7 @@ class RAFT(nn.Module):
         Baseline step's forward; JAX's ``__call__(train=True)``)."""
         return self._flow(image1, image2)
 
+    @span("fst.forward")
     def _flow(self, image1, image2, flow_init=None, iters=None, final_flow_only=False):
         iters = self.cfg.iters if iters is None else iters
         b, h, w, _ = image1.shape

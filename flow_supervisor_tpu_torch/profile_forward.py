@@ -4,22 +4,24 @@
         [--batch 1] [--dtype bfloat16] [--lookup_backend plane|fused|pallas]
         [--trace out.json]
 
-Prints one JSON object: the forward's time split by stage (CUDA events
-around fnet, the correlation build, cnet, and the refinement loop with its
-final upsample, each run as the forward runs it), and a torch.profiler summary of
-a few whole forwards: device time by kernel and by category, and the share
-of the window in which the device ran no kernel. Weights are random from a
-seed. A CUDA device is required.
+Prints one JSON object: the forward's time (CUDA events), and a
+torch.profiler summary of a few whole forwards: device time by kernel, by
+category and by span (``span_ms_per_forward``: the device ms of each
+``fst.*`` span of tracing.py, inclusive of the spans inside it), and the
+share of the window in which the device ran no kernel. Weights are random
+from a seed. A CUDA device is required.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
+import itertools
 import json
 
 import torch
 
 from flow_supervisor_tpu_torch.models.raft import LOOKUP_BACKENDS, RAFT, RAFTConfig
-from flow_supervisor_tpu_torch.ops.coords import coords_grid, downsample_shape
+from flow_supervisor_tpu_torch.tracing import SPANS
 
 # substrings of kernel names -> category (first match wins)
 CATEGORIES = (
@@ -57,24 +59,32 @@ def _events_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def stage_times(model: RAFT, img1, img2, iters: int, reps: int = 5) -> dict[str, float]:
-    """Mean ms of each forward stage, timed one stage at a time."""
-    b, h, w, _ = img1.shape
-    h8, w8 = downsample_shape(h), downsample_shape(w)
-    acc: dict[str, float] = {}
-    for _ in range(reps):
-        st: dict = {}
-        t = {
-            "fnet": _events_ms(lambda: st.update(f=model.features(img1, img2))),
-            "corr_build": _events_ms(lambda: st.update(p=model.build_corr(*st["f"]))),
-            "cnet": _events_ms(lambda: st.update(c=model.context(img1))),
-        }
-        c0 = coords_grid(b, h8, w8, device=img1.device)
-        t["refine_x%d" % iters] = _events_ms(lambda: st.update(r=model.iterate(
-            *st["c"], st["p"], c0, c0, (h, w), iters, final_flow_only=True)))
-        for k, v in t.items():
-            acc[k] = acc.get(k, 0.0) + v / reps
-    return acc
+def span_device_us(events, device_ops) -> dict[str, float]:
+    """Device us under each span of ``SPANS`` in a profiler's ``events``:
+    each of ``device_ops`` is filed under every span open when its runtime
+    call ran (``cudaLaunchKernel`` and the like, whose event shares the
+    operation's correlation id), each span's open intervals merged first."""
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    launched = {e.id: e.time_range.start for e in cpu if e.name.startswith("cu")}
+    ops = sorted((launched[e.id], e.device_time) for e in device_ops if e.id in launched)
+    at = [t for t, _ in ops]
+    cum = [0.0, *itertools.accumulate(us for _, us in ops)]
+    opened: dict[str, list] = {}
+    for e in cpu:
+        if e.name in SPANS:
+            opened.setdefault(e.name, []).append([e.time_range.start, e.time_range.end])
+    out = {}
+    for name, spans in opened.items():
+        spans.sort()
+        merged = [spans[0]]
+        for s, e in spans[1:]:
+            if s <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], e)
+            else:
+                merged.append([s, e])
+        out[name] = sum(cum[bisect.bisect_right(at, e)] - cum[bisect.bisect_left(at, s)]
+                        for s, e in merged)
+    return out
 
 
 def profile(fn, n: int = 3, trace: str | None = None) -> dict:
@@ -116,6 +126,7 @@ def profile(fn, n: int = 3, trace: str | None = None) -> dict:
     window = spans[-1][1] - spans[0][0]
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
+    by_span = span_device_us(prof.events(), kernels)
     return {
         "forwards": n,
         "device_ms_per_forward": total / 1000.0 / n,
@@ -129,6 +140,7 @@ def profile(fn, n: int = 3, trace: str | None = None) -> dict:
             k: launches_by_cat[k] / n for k in sorted(by_cat, key=lambda k: -by_cat[k])
         },
         "top_kernels_ms_per_forward": [[k[:120], v / 1000.0 / n] for k, v in top],
+        "span_ms_per_forward": {k: by_span[k] / 1000.0 / n for k in SPANS if k in by_span},
     }
 
 
@@ -159,14 +171,11 @@ def main(argv=None) -> int:
 
     for _ in range(3):
         forward()
-    with torch.no_grad():
-        stages = stage_times(model, img1, img2, args.iters)
     fwd = sum(_events_ms(forward) for _ in range(10)) / 10
     out = {
         "gpu": torch.cuda.get_device_name(0), "hw": list(args.hw), "batch": args.batch,
         "iters": args.iters, "dtype": args.dtype, "lookup_backend": args.lookup_backend,
-        "fwd_ms": fwd,
-        "stage_ms": stages, "profile": profile(forward, trace=args.trace),
+        "fwd_ms": fwd, "profile": profile(forward, trace=args.trace),
     }
     print(json.dumps(out))
     return 0

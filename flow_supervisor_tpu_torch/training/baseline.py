@@ -20,6 +20,7 @@ import torch
 from flow_supervisor_tpu_torch.losses.supervised import sequence_loss
 from flow_supervisor_tpu_torch.metrics import epe_per_image
 from flow_supervisor_tpu_torch.parallel import mesh
+from flow_supervisor_tpu_torch.tracing import span
 from flow_supervisor_tpu_torch.training.state import TrainState, grads_of
 
 
@@ -29,8 +30,11 @@ def make_train_step(model, loss_type: str = "robust", gamma: float = 0.8,
 
     def train_step(state: TrainState, batch: dict[str, Any]):
         model.train()
-        out = model.train_forward(batch["image1"], batch["image2"])
-        loss = sequence_loss(out["flow_up"], batch["flow"], batch.get("valid"), gamma, loss_type)
+        with span("fst.train.forward"):
+            out = model.train_forward(batch["image1"], batch["image2"])
+        with span("fst.train.loss"):
+            loss = sequence_loss(out["flow_up"], batch["flow"], batch.get("valid"), gamma,
+                                 loss_type)
         grads = mesh.all_reduce_grads(grads_of(loss, named))
         log = mesh.mean_log({"loss": loss.detach(), "epe": torch.mean(epe_per_image(
             out["flow_up"][-1].detach(), batch["flow"], batch.get("valid")))})

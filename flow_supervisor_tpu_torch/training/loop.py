@@ -49,6 +49,7 @@ from flow_supervisor_tpu_torch.config import ExperimentConfig
 from flow_supervisor_tpu_torch.evaluation import make_train_validator
 from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
 from flow_supervisor_tpu_torch.parallel import mesh
+from flow_supervisor_tpu_torch.tracing import span
 from flow_supervisor_tpu_torch.training import checkpoint as ckpt
 from flow_supervisor_tpu_torch.training.baseline import make_train_step
 from flow_supervisor_tpu_torch.training.optim import batchnorm_params, make_optimizer
@@ -266,8 +267,9 @@ def train(
             elif trace is not None and step_i == start_step + 2 + cfg.train.trace_steps:
                 trace.stop()
             batch = next(data_iter)
-            batch = (tuple(_to(b, device) for b in batch) if isinstance(batch, (tuple, list))
-                     else _to(batch, device))
+            with span("fst.train.h2d"):
+                batch = (tuple(_to(b, device) for b in batch) if isinstance(batch, (tuple, list))
+                         else _to(batch, device))
             state, metrics = step_fn(state, batch)
             since += 1
             if (step_i + 1) % cfg.train.log_every == 0 and main:

@@ -45,6 +45,7 @@ from flow_supervisor_tpu_torch.losses.unsupervised import (
 )
 from flow_supervisor_tpu_torch.metrics import epe_per_image
 from flow_supervisor_tpu_torch.parallel import mesh
+from flow_supervisor_tpu_torch.tracing import span
 from flow_supervisor_tpu_torch.training.state import TrainState, grads_of
 from flow_supervisor_tpu_torch.training.unsup import smurf_images
 
@@ -66,6 +67,7 @@ def make_semi_train_step(
     unsup_cfg = UnsupLossConfig.from_model_cfg(mc, selfsup=0.0)
     named = list(model.named_parameters())
 
+    @span("fst.train.forward")
     def semi(batch, **kw):
         return model.semi_forward(
             batch["image1"], batch["image2"], batch["orig_image1"], batch["orig_image2"],
@@ -75,46 +77,48 @@ def make_semi_train_step(
     def sup_loss_fn(batch):
         out = semi(batch, use_bw=False)
         log = {}
-        total = sequence_loss(
-            out["student_fw"], batch["flow"], batch["valid"], gamma=gamma, loss=sup_loss_type
-        ) * mc.sup_label_loss_weight
-        log["sup_label_loss"] = total
-        if mc.lfl_weight > 0.0:
-            lfl = sequence_loss(
-                out["teacher_fw"], batch["flow"], batch["valid"],
-                gamma=mc.lfl_loss_decay_rate, loss=sup_loss_type,
-            ) * mc.lfl_weight
-            log["lfl_loss"] = lfl
-            total = total + lfl
+        with span("fst.train.loss"):
+            total = sequence_loss(
+                out["student_fw"], batch["flow"], batch["valid"], gamma=gamma, loss=sup_loss_type
+            ) * mc.sup_label_loss_weight
+            log["sup_label_loss"] = total
+            if mc.lfl_weight > 0.0:
+                lfl = sequence_loss(
+                    out["teacher_fw"], batch["flow"], batch["valid"],
+                    gamma=mc.lfl_loss_decay_rate, loss=sup_loss_type,
+                ) * mc.lfl_weight
+                log["lfl_loss"] = lfl
+                total = total + lfl
         log["sup_loss"] = total
         return total, log, out["student_fw"][-1]
 
     def unsup_loss_fn(batch):
         out = semi(batch, use_bw=mc.use_bw, teacher_final_only=not smurf, teacher_grad=smurf)
         log = {}
-        total = torch.zeros((), dtype=torch.float32, device=batch["image1"].device)
-        if smurf:
-            images, full = smurf_images(batch)
-            smurf_total, _ = unsupervised_sequence_loss(
-                images, out["teacher_fw"], out["teacher_bw"], unsup_cfg,
-                full_size_images=full, crop_yx=batch["crop_yx"],
-            )
-            log["teacher_smurf_loss"] = smurf_total
-            total = total + smurf_total * mc.teacher_smurf_weight
-        if mc.lfr_weight > 0.0:
-            lfr = sequence_loss(
-                out["student_fw"], out["teacher_fw"][-1].detach(), None, gamma=gamma,
-                loss=mc.lfr_loss_type,
-            ) + sequence_loss(
-                out["student_bw"], out["teacher_bw"][-1].detach(), None, gamma=gamma,
-                loss=mc.lfr_loss_type,
-            )
-            lfr = lfr * mc.lfr_weight
-            log["lfr_loss"] = lfr
-            total = total + lfr
-            if mc.lfr_sum_reduction:
-                b, h, w = batch["image1"].shape[0:3]
-                total = total * float(b * mesh.world_size() * h * w)
+        with span("fst.train.loss"):
+            total = torch.zeros((), dtype=torch.float32, device=batch["image1"].device)
+            if smurf:
+                images, full = smurf_images(batch)
+                smurf_total, _ = unsupervised_sequence_loss(
+                    images, out["teacher_fw"], out["teacher_bw"], unsup_cfg,
+                    full_size_images=full, crop_yx=batch["crop_yx"],
+                )
+                log["teacher_smurf_loss"] = smurf_total
+                total = total + smurf_total * mc.teacher_smurf_weight
+            if mc.lfr_weight > 0.0:
+                lfr = sequence_loss(
+                    out["student_fw"], out["teacher_fw"][-1].detach(), None, gamma=gamma,
+                    loss=mc.lfr_loss_type,
+                ) + sequence_loss(
+                    out["student_bw"], out["teacher_bw"][-1].detach(), None, gamma=gamma,
+                    loss=mc.lfr_loss_type,
+                )
+                lfr = lfr * mc.lfr_weight
+                log["lfr_loss"] = lfr
+                total = total + lfr
+                if mc.lfr_sum_reduction:
+                    b, h, w = batch["image1"].shape[0:3]
+                    total = total * float(b * mesh.world_size() * h * w)
         log["unsup_loss"] = total
         return total, log
 

@@ -11,6 +11,7 @@ import dataclasses
 
 import torch
 
+from flow_supervisor_tpu_torch.tracing import span
 from flow_supervisor_tpu_torch.training.optim import AdamW, AdamWState
 
 
@@ -25,6 +26,7 @@ class TrainState:
     def create(cls, params: dict[str, torch.Tensor], tx: AdamW) -> "TrainState":
         return cls(step=0, params=params, opt_state=tx.init(params), tx=tx)
 
+    @span("fst.train.optimizer")
     @torch.no_grad()
     def apply_gradients(self, grads: dict[str, torch.Tensor]) -> "TrainState":
         updates, self.opt_state = self.tx.update(grads, self.opt_state, self.params)
@@ -34,6 +36,7 @@ class TrainState:
         return self
 
 
+@span("fst.train.backward")
 def grads_of(loss: torch.Tensor, named) -> dict[str, torch.Tensor]:
     """d loss / d each of the (name, parameter) pairs ``named``; zeros for a
     parameter the loss does not reach (JAX's zero for an unused input)."""

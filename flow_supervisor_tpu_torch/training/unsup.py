@@ -30,6 +30,7 @@ from flow_supervisor_tpu_torch.losses.unsupervised import (
 from flow_supervisor_tpu_torch.metrics import epe_per_image
 from flow_supervisor_tpu_torch.ops.pad import crop_bboxes
 from flow_supervisor_tpu_torch.parallel import mesh
+from flow_supervisor_tpu_torch.tracing import span
 from flow_supervisor_tpu_torch.training.state import TrainState, grads_of
 
 
@@ -47,16 +48,19 @@ def make_unsup_train_step(model, model_cfg, debug_grads: bool = False):
 
     def train_step(state: TrainState, batch: dict[str, Any]):
         model.train()
-        with torch.no_grad():
-            teacher = model.unsup_forward(batch["orig_image1"], batch["orig_image2"],
-                                          final_flow_only=True)
-        images, full = smurf_images(batch)
-        out = model.unsup_forward(batch["image1"], batch["image2"])
-        loss, terms = unsupervised_sequence_loss(
-            images, out["flow_up"], out["flow_up_bw"], cfg,
-            teacher_flow_fw=teacher["flow_up"][-1], teacher_flow_bw=teacher["flow_up_bw"][-1],
-            full_size_images=full, crop_yx=batch["crop_yx"],
-        )
+        with span("fst.train.forward"):
+            with torch.no_grad():
+                teacher = model.unsup_forward(batch["orig_image1"], batch["orig_image2"],
+                                              final_flow_only=True)
+            out = model.unsup_forward(batch["image1"], batch["image2"])
+        with span("fst.train.loss"):
+            images, full = smurf_images(batch)
+            loss, terms = unsupervised_sequence_loss(
+                images, out["flow_up"], out["flow_up_bw"], cfg,
+                teacher_flow_fw=teacher["flow_up"][-1],
+                teacher_flow_bw=teacher["flow_up_bw"][-1],
+                full_size_images=full, crop_yx=batch["crop_yx"],
+            )
         grads = mesh.all_reduce_grads(grads_of(loss, named))
         log = {"loss": loss.detach(), **{k: v.detach() for k, v in terms.items()}}
         if "flow" in batch:
