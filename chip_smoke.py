@@ -57,7 +57,13 @@ each printing one JSON line per check or configuration:
    bit against their plain versions on those inputs; the encoder kernels
    K2-K4 are timed at B=1, and K3 / K4
    also at the fnet shapes of fused B=8 (16 images) and of the chairs
-   Baseline step (20 images at 368x496). Kernel, plain
+   Baseline step (20 images at 368x496); E1 (the update block's conv
+   epilogues, which every forward without gradient launches 13 times an
+   iteration, 8 in the small model) in each of its three modes against its
+   plain version's fp32 value within a bf16 ulp at the fused B=8 forward's
+   update-block grid (8 x 56x128), including the channel-offset writes and
+   the masked tail, then an iteration's launches timed against the plain
+   versions and ATen's op chain (``probe_epilogue``). Kernel, plain
    and library times are device time (the timed calls queue behind a spin
    kernel); the forward's time is back to back, host included;
    own_paths: K5 and K11 through their own public functions
@@ -75,8 +81,8 @@ each printing one JSON line per check or configuration:
    flow-supervisor RAFT with its teacher head (fp32, the auto lookup):
    Sintel at 32 iterations with warm start, then 12 teacher iterations;
    KITTI at 24 + 12 with pad_bucket 8 and 64. Each run must launch K6
-   (iters + teacher iters) times a pair and K2 / K3 / K4 their encoder
-   counts, and give every metric finite and in range; it prints pairs/s,
+   (iters + teacher iters) times a pair, E1 13 times as often, and K2 / K3
+   / K4 their encoder counts, and give every metric finite and in range; it prints pairs/s,
    host ms per pair (decode, warm start, forward), device ms and idle share
    of one pair (torch.profiler), peak memory and decode ms per frame. Then
    the same Evaluator on the card against the CPU at 216x512, 4 iterations,
@@ -188,7 +194,7 @@ Then it prints K2's and K5's device time per fnet stage shape beside
 ``F.conv2d``'s, a JSON line of the kernels (launches in their configuration's
 main-path run, max error, kernel, plain and library ms per forward (K8/K9:
 per train step; K12: per plane-lookup semi step; K5: per forward's fnet stage
-convs; K11: per 12 lookups),
+convs; K11: per 12 lookups; E1: per 12 update-block iterations at B=8),
 and the least time the card could take for the same work; K1 and K6-K9
 also their launches at radius 3 in phase 7's main-path runs, their largest
 bf16 error there, and K8 / K9 their ms per small Baseline step; K3-K6 their
@@ -247,7 +253,15 @@ SOURCES = {
     # corr_lookup_v2.py:260), both through corr_fused.lookup_vjp_dvols
     "corr_plane_bwd": ("flow_supervisor_tpu_torch/csrc/corr_plane_bwd.cu",
                        "flow_supervisor_tpu/kernels/corr_plane.py:497"),
+    # E1 replaces no TPU kernel: XLA fuses the update block's bias adds,
+    # activations and GRU gating into its convs
+    "update_epilogue": ("flow_supervisor_tpu_torch/csrc/update_epilogue.cu", None),
 }
+# E1's launches per update-block call without gradient: RAFT's and GMA's
+# block 13 (the motion encoder's 5 convs, a gate and an update for each of
+# the GRU's 2 passes, the flow head's 2 convs, the mask head's 2), the small
+# model's 8 (4 encoder convs, one GRU pass, the flow head); under gradient none
+EPILOGUES, SMALL_EPILOGUES = 13, 8
 # the Sintel flow-supervisor recipe (train.sh): B=1, a 400x720 supervised and
 # a 368x768 unsupervised crop of 432x1024 frames, 12 student and 12 teacher
 # iterations, lr 1e-5 exponential, no weight decay, clipnorm 1
@@ -262,9 +276,11 @@ RECIPE_TRAIN = dict(stage="semi-sintel_unsup_test-things_unsup", lr=1e-5,
 # pair and the full pair, in each branch), 10 K2 + 5 K3 + 15 K4 each; every
 # lookup is one K6 (sup: 12 student + 12 teacher; unsup: 2 directions x
 # (12 + 12)); K8 and K9 run once per student lookup (sup 12, unsup 2 x 12):
-# the teacher's pyramid carries no gradient
+# the teacher's pyramid carries no gradient; E1 in the unsup branch's
+# teacher, which runs without gradient (2 directions x 12 iterations)
 TRAIN_LAUNCHES = {"conv3x3_stats": 40, "norm_stats": 20, "norm_apply": 60,
-                  "corr_fused_all": 72, "bwd_df1": 36, "bwd_df2": 36}
+                  "corr_fused_all": 72, "bwd_df1": 36, "bwd_df2": 36,
+                  "update_epilogue": 2 * ITERS * EPILOGUES}
 # K8 / K9 calls per step at each lookup shape: sup 50x90 (12), unsup 46x96 (24)
 TRAIN_BWD_CALLS = {"sup": 12, "unsup": 24}
 # the KITTI flow-supervisor recipe with the teacher SMURF loss (train.sh:25-34):
@@ -293,14 +309,17 @@ RECIPE_NAMES = {"semi": "semi sintel (train.sh)", "unsup": "unsup, sintel shapes
                 "baseline": "baseline chairs (train.sh)"}
 # launches of each kernel per step. The KITTI semi step launches what the
 # Sintel one does (the teacher SMURF loss adds no kernel; the teacher's
-# pyramid still carries no gradient). Unsup: fnet twice (the teacher on the
-# full frames, the student on the crops), 2 directions x 12 lookups each
-# (K6), K8 / K9 for the student's 24. Baseline (B=10): fnet once, 12 lookups
-# of one K7 per level, K8 / K9 for each lookup.
+# pyramid still carries no gradient) but E1: the SMURF loss takes gradient
+# through the teacher head. Unsup: fnet twice (the teacher on the full
+# frames, the student on the crops), 2 directions x 12 lookups each (K6),
+# K8 / K9 for the student's 24, E1 for the teacher's 24 (without gradient).
+# Baseline (B=10): fnet once, 12 lookups of one K7 per level, K8 / K9 for
+# each lookup.
 STEP_LAUNCHES = {
-    "semi": TRAIN_LAUNCHES, "smurf": TRAIN_LAUNCHES,
+    "semi": TRAIN_LAUNCHES,
+    "smurf": {k: v for k, v in TRAIN_LAUNCHES.items() if k != "update_epilogue"},
     "unsup": {"conv3x3_stats": 20, "norm_stats": 10, "norm_apply": 30, "corr_fused_all": 48,
-              "bwd_df1": 24, "bwd_df2": 24},
+              "bwd_df1": 24, "bwd_df2": 24, "update_epilogue": 2 * ITERS * EPILOGUES},
     "baseline": {"conv3x3_stats": 10, "norm_stats": 5, "norm_apply": 15,
                  "corr_fused_level": ITERS * LEVELS, "bwd_df1": ITERS, "bwd_df2": ITERS},
 }
@@ -354,7 +373,8 @@ MODEL_RECIPES.update({
 })
 RECIPE_NAMES.update({"semi_plane": "semi sintel (train.sh), plane lookup",
                      "semi_pallas": "semi sintel (train.sh), pallas lookup"})
-_PLANE_STEP = {"conv3x3_stats": 40, "norm_stats": 20, "norm_apply": 60, "corr_plane_bwd": 36}
+_PLANE_STEP = {"conv3x3_stats": 40, "norm_stats": 20, "norm_apply": 60, "corr_plane_bwd": 36,
+               "update_epilogue": TRAIN_LAUNCHES["update_epilogue"]}
 STEP_LAUNCHES.update({"semi_plane": {**_PLANE_STEP, "corr_plane": 72},
                       "semi_pallas": {**_PLANE_STEP, "corr_window": 72}})
 # K12 against its plain version at the lookup grids of the recipe (the sup
@@ -466,7 +486,7 @@ HOME_CONFIG = {"corr_plane": ("plane", 1), "conv3x3_stats": ("plane", 1),
                "corr_fused_all": ("fused", 1), "corr_fused_level": ("fused", 8),
                "corr_window": ("pallas", 1), "bwd_df1": ("train", 1), "bwd_df2": ("train", 1),
                "conv3x3_bare": ("own", 1), "corr_lookup_volume": ("own", 1),
-               "corr_plane_bwd": ("train_rest", 1)}
+               "corr_plane_bwd": ("train_rest", 1), "update_epilogue": ("fused", 8)}
 # fnet shapes at 448x1024 (B=1: the pair runs through fnet together) and how
 # many times one forward runs each kernel there
 CONV_SHAPES = [((2, 224, 512, 64), 64, 4), ((2, 112, 256, 96), 96, 3), ((2, 56, 128, 128), 128, 3)]
@@ -505,7 +525,7 @@ def gpu_line() -> str:
 
 def launch_counts() -> dict:
     from flow_supervisor_tpu_torch.kernels import (
-        conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm,
+        conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm, update_epilogue,
     )
 
     return {"corr_plane": corr_plane.launches, "conv3x3_stats": conv3x3.launches,
@@ -515,12 +535,13 @@ def launch_counts() -> dict:
             "corr_window": corr_lookup_v2.launches,
             "bwd_df1": corr_fused.bwd_df1_launches, "bwd_df2": corr_fused.bwd_df2_launches,
             "conv3x3_bare": conv3x3.bare_launches, "corr_lookup_volume": corr_lookup.launches,
-            "corr_plane_bwd": corr_plane.bwd_launches}
+            "corr_plane_bwd": corr_plane.bwd_launches,
+            "update_epilogue": update_epilogue.launches}
 
 
 def reset_launch_counts() -> None:
     from flow_supervisor_tpu_torch.kernels import (
-        conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm,
+        conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm, update_epilogue,
     )
 
     corr_plane.launches = conv3x3.launches = norm.stats_launches = norm.apply_launches = 0
@@ -528,7 +549,7 @@ def reset_launch_counts() -> None:
     corr_fused.all_launches = corr_fused.level_launches = corr_lookup_v2.launches = 0
     corr_fused.bwd_df1_launches = corr_fused.bwd_df2_launches = 0
     conv3x3.bare_launches = corr_lookup.launches = conv3x3.tc_launches = 0
-    corr_plane.bwd_launches = 0
+    corr_plane.bwd_launches = update_epilogue.launches = 0
 
 
 def check_tc_launches(where: str, want: int) -> int:
@@ -1359,6 +1380,72 @@ def encoder_timing(dev, images=2, hw=MAIN_HW, conv=True):
     return times
 
 
+def epilogue_timing(dev, batch: int) -> dict:
+    """E1 at the main path's update-block grid (batch x 56x128, bf16): each
+    wrapper against its plain version's fp32 value (``check_ulp``, atol 1e-6
+    for the two fp32 sigmoid / tanh formulas) at the block's channel slots,
+    with biases in bf16 (a model held in bf16) and in fp32 (held in fp32),
+    then one iteration's launches (probe_epilogue.iteration: 13 and the
+    flow's copy into the GRU's input) timed against the plain versions and
+    against ATen's op chain of the same iteration (the library yardstick), as
+    ms per forward's 12 iterations beside the least time the bytes take."""
+    import torch
+
+    from flow_supervisor_tpu_torch import probe_epilogue
+    from flow_supervisor_tpu_torch.kernels import update_epilogue as epi
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(22)
+    shape = (batch, MAIN_HW[0] // 8, MAIN_HW[1] // 8)
+
+    def rand(c, width=None):
+        return torch.randn(*shape, width or c, generator=gen).to(dev, bf16)
+
+    err = 0.0
+    for bias_dtype in (bf16, torch.float32):
+        def bias(c):
+            return (0.1 * torch.randn(c, generator=gen)).to(dev, bias_dtype)
+
+        # (relu, scale, C, channel offset, buffer width): the motion encoder's
+        # convs into [cor | flo] and the motion conv into [h | inp | motion]
+        # (126 channels: the masked tail), the heads' convs in place
+        for relu, scale, c, off, width in ((True, 1.0, 256, 0, 256), (True, 1.0, 192, 0, 256),
+                                           (True, 1.0, 64, 192, 256), (True, 1.0, 126, 256, 384),
+                                           (False, 1.0, 2, 0, 2), (False, 0.25, 576, 0, 576)):
+            x, b, buf = rand(c), bias(c), rand(c, width)
+            want = epi.bias_act_plain(x, b, torch.empty(x.shape, device=dev), relu, scale)
+            got = epi.bias_act(x, b, buf[..., off:off + c], relu, scale)
+            err = max(err, check_ulp(f"E1 act C={c} at {off} of {width}, {bias_dtype} bias",
+                                     got, want, 1e-6))
+        z, r, q, hx = rand(128), rand(128), rand(128), rand(128, 384)
+        h = torch.tanh(rand(128).float()).to(bf16)
+        bz, br, bq = bias(128), bias(128), bias(128)
+        zs_want, rh_want = z.float(), torch.empty(z.shape, device=dev)
+        epi.gru_gate_plain(zs_want, r, bz, br, h, rh_want)
+        zs = epi.gru_gate(z, r, bz, br, h, hx[..., :128])
+        err = max(err, check_ulp(f"E1 gate sigmoid(z), {bias_dtype} bias", zs, zs_want, 1e-6),
+                  check_ulp(f"E1 gate r * h, {bias_dtype} bias", hx[..., :128], rh_want, 1e-6))
+        state, want = torch.empty_like(h), torch.empty(h.shape, device=dev)
+        epi.gru_update_plain(q, bq, zs, h, want, torch.empty_like(want))
+        epi.gru_update(q, bq, zs, h, state, hx[..., :128])
+        err = max(err, check_ulp(f"E1 update h', {bias_dtype} bias", state, want, 1e-6))
+        if not torch.equal(hx[..., :128], state):
+            raise AssertionError("E1 update: the h slot and the state differ")
+        del x, b, buf, want, got, z, r, q, hx, h, zs, zs_want, rh_want, state
+
+    fns, (_, _, nbytes), _, _ = probe_epilogue.iteration(shape, bf16, dev, gen)
+    k, p = ab_ms(fns["kernel"], fns["plain"])
+    library = time_ms(fns["chain"], device_only=True)
+    del fns
+    torch.cuda.empty_cache()
+    bound_ms = bound(nbytes, 0, bf16)[0] * ITERS
+    return {"ms": k * ITERS, "plain_ms": p * ITERS, "library_ms": library * ITERS,
+            "bound_ms": bound_ms, "bound_by": "bytes", "share_of_bound": bound_ms / (k * ITERS),
+            "library_share_of_bound": bound_ms / (library * ITERS),
+            "bytes_per_iteration": nbytes, "max_abs_err": err,
+            "hw": list(shape[1:]), "batch": batch, "dtype": "bfloat16"}
+
+
 def phase_main_path(dev):
     import torch
 
@@ -1384,7 +1471,7 @@ def phase_main_path(dev):
         torch.cuda.synchronize()
         got = launch_counts()
         want = {k: 0 for k in SOURCES}
-        want.update(ENCODER_LAUNCHES)
+        want.update(ENCODER_LAUNCHES, update_epilogue=ITERS * EPILOGUES)
         lookup = LOOKUP_KERNEL[(backend, batch)]
         if lookup is not None:
             want[lookup] = LOOKUP_LAUNCHES[lookup]
@@ -1429,6 +1516,10 @@ def phase_main_path(dev):
                "by_category_ms_per_forward": prof.get("by_category_ms_per_forward")}
         emit(res)
         summary.append(res)
+    home = HOME_CONFIG["update_epilogue"]
+    e1 = times[home]["update_epilogue"] = epilogue_timing(dev, home[1])
+    e1["launches"] = launches[home]["update_epilogue"]
+    emit({"phase": "main_path", "ok": True, "update_epilogue": e1})
     enc = encoder_timing(dev)
     for name, t in enc.items():
         t["launches"] = launches[("plane", 1)][name]
@@ -1668,11 +1759,13 @@ def check_eval_result(where, res, sparse, teacher=True):
 
 
 def eval_launch_check(where, got, pairs, iters, teacher_iters):
-    """Raises unless a run of `pairs` pairs launched K6 (iters + teacher_iters)
-    times a pair, K2 / K3 / K4 their encoder counts a pair and nothing else."""
+    """Raises unless a run of `pairs` pairs launched K6 and RAFT's or GMA's
+    E1 launches (iters + teacher_iters) times a pair, K2 / K3 / K4 their
+    encoder counts a pair and nothing else."""
     want = {k: 0 for k in SOURCES}
     want.update({k: pairs * v for k, v in ENCODER_LAUNCHES.items()})
     want["corr_fused_all"] = pairs * (iters + teacher_iters)
+    want["update_epilogue"] = pairs * (iters + teacher_iters) * EPILOGUES
     if got != want:
         raise AssertionError(f"{where}: launch counts {got} != expected {want}")
     return {k: v / pairs for k, v in got.items() if v}
@@ -2436,7 +2529,7 @@ def cli_run(where: str, argv: list, want_steps: dict, train_steps: list, val_ste
     """``python -m flow_supervisor_tpu_torch.train`` in this process on the
     card, with the launch counters reset: every kernel of ``want_steps``
     (kernel -> launches per step) launched at least that often per step of
-    this run, no other kernel but the validation's K6 and encoder kernels;
+    this run, no other kernel but the validation's K6, E1 and encoder kernels;
     the run's metrics rows (train and val steps, every loss finite) and
     checkpoint steps as listed. Returns the run's summary."""
     import torch
@@ -2457,7 +2550,8 @@ def cli_run(where: str, argv: list, want_steps: dict, train_steps: list, val_ste
         raise AssertionError(f"{where}: the train CLI exited {rc}")
     rows = metrics_rows(run)[before:]
     steps = len(train_steps)
-    allowed = set(want_steps) | {"corr_fused_all", "conv3x3_stats", "norm_stats", "norm_apply"}
+    allowed = set(want_steps) | {"corr_fused_all", "conv3x3_stats", "norm_stats", "norm_apply",
+                                 "update_epilogue"}
     short = {k: (got[k], steps * n) for k, n in want_steps.items() if got[k] < steps * n}
     stray = {k: v for k, v in got.items() if v and k not in allowed}
     if short or stray:
@@ -2674,6 +2768,7 @@ def model_forward(dev, kind: str, backend: str, gen):
     want = {k: 0 for k in SOURCES}
     want.update(SMALL_ENCODER_LAUNCHES if kind == "small" else ENCODER_LAUNCHES)
     want[LOOKUP_KERNEL[(backend, 1)]] = ITERS
+    want["update_epilogue"] = ITERS * (SMALL_EPILOGUES if kind == "small" else EPILOGUES)
     flow = out["flow_up"]
     where = f"gma_small {kind} {backend} B=1"
     if tuple(flow.shape) != (1, 1, *MAIN_HW, 2) or not torch.isfinite(flow).all():
@@ -3217,7 +3312,7 @@ def phase_space(dev, world: int = SPACE_WORLD, backend: str = "gloo", cards: int
         runs = [r["forwards"][name] for r in ranks]
         d = (runs[0]["flow_up"] - ref).abs()
         want = {k: 0 for k in SOURCES}
-        want.update(SPACE_ENCODER_LAUNCHES)
+        want.update(SPACE_ENCODER_LAUNCHES, update_epilogue=ITERS * EPILOGUES)
         if "fused" in name:
             want["corr_fused_all"] = ITERS
         res = {"phase": "space", "config": name, "world": world, "backend": backend,
@@ -3250,6 +3345,7 @@ def phase_space(dev, world: int = SPACE_WORLD, backend: str = "gloo", cards: int
     want = {k: 0 for k in SOURCES}
     want.update({k: pairs * v for k, v in SPACE_ENCODER_LAUNCHES.items()})
     want["corr_fused_all"] = pairs * (SPACE_EVAL_ITERS + EVAL_TEACHER_ITERS)
+    want["update_epilogue"] = want["corr_fused_all"] * EPILOGUES
     diffs = [{k: abs(r["evaluate"][k] - eval_one[k]) for k in eval_one
               if k.startswith(("student_", "teacher_"))} for r in ranks]
     res = {"phase": "space", "check": "evaluator", "world": world, "backend": backend,
@@ -3307,6 +3403,8 @@ def main() -> int:
     errs = phase_kernels(dev)
     phase_parity(dev)
     launches, times = phase_main_path(dev)
+    e1_home = HOME_CONFIG["update_epilogue"]
+    errs["update_epilogue"] = times[e1_home]["update_epilogue"]["max_abs_err"]
     launches[("own", 1)], times[("own", 1)] = phase_own_paths(dev)
     phase_requests(dev)
     phase_evaluate(dev)
@@ -3333,6 +3431,9 @@ def main() -> int:
             config = {"train": "semi sintel recipe, plane lookup", "batch": 1,
                       "steps": TRAIN_STEPS_MAIN,
                       "launches_per_step": STEP_LAUNCHES["semi_plane"][name]}
+        elif name == "update_epilogue":
+            config = {"update_block": "RAFT", "batch": home[1], "iters": ITERS,
+                      "hw": [MAIN_HW[0] // 8, MAIN_HW[1] // 8], "dtype": "bfloat16"}
         elif home[0] == "own":
             config = {"own_function": "conv3x3_fused" if name == "conv3x3_bare"
                       else "corr_pyramid_lookup_pallas", "hw": list(MAIN_HW)}

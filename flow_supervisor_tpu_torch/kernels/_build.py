@@ -35,6 +35,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 # C signatures: name -> argtypes (restype is int for all: cudaError_t for launchers)
 SIGNATURES = {
     # planes[L], h2[L], w2[L], levels, coords, out, bq, radius, in_dtype, out_dtype, stream
@@ -72,6 +73,10 @@ SIGNATURES = {
     "fst_instance_norm_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, stats, y, B, M, C, dtype, vec, relu, stream
     "fst_instance_norm_apply": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # mode, dtype, bias dtype, P, C, a, sa, b, sb, h, sh, bias0, bias1, o0, so0, o1, so1,
+    # relu, scale, stream (csrc/update_epilogue.cu)
+    "fst_update_epilogue": [_I, _I, _I, _L, _I, _P, _L, _P, _L, _P, _L, _P, _P, _P, _L, _P, _L,
+                            _I, _F, _P],
     # partial-sum rows per sample: (H, W) for the conv, (B, M, C, dtype, vec) for the norm
     "fst_conv3x3_partials": [_I, _I],
     "fst_instance_norm_chunks": [_I, _I, _I, _I, _I],

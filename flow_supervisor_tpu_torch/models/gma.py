@@ -18,7 +18,10 @@
   dtype) where heads * dim_head != dim; the residual scaled by ``gamma``,
   a scalar that starts at zero.
 - ``GMAUpdateBlock``: the GRU input is context 128 + motion 128 + the motion
-  aggregated over the frame 128.
+  aggregated over the frame 128. Without gradient it takes the fused path of
+  models/update.py: the motion features land in a contiguous buffer (to_v's
+  1x1 conv reads them), are copied into their slot of the GRU's input, and
+  the aggregation writes its sum into the next slot.
 
 The attention map is computed once per forward from the relu'd context and
 serves every refinement iteration. Its two products, q . k^T once and attn .
@@ -50,7 +53,9 @@ from flow_supervisor_tpu_torch.tracing import span
 from flow_supervisor_tpu_torch.models.update import (
     BasicMotionEncoder,
     FlowHead,
+    FusedBuffers,
     SepConvGRU,
+    fused_block,
     mask_head,
 )
 
@@ -150,20 +155,24 @@ class Aggregate(nn.Module):
         self.gamma = nn.Parameter(torch.zeros(1))
 
     @span("fst.aggregate")
-    def forward(self, attn: torch.Tensor, fmap: torch.Tensor) -> torch.Tensor:
+    def forward(self, attn: torch.Tensor, fmap: torch.Tensor,
+                out: torch.Tensor | None = None) -> torch.Tensor:
         """attn [B, heads, N, N], fmap NCHW [B, dim, h, w] -> fmap + gamma *
-        (the attention-weighted v, projected to dim), NCHW in fmap's dtype."""
+        (the attention-weighted v, projected to dim), NCHW in fmap's dtype;
+        written into ``out`` (NCHW, fmap's shape and dtype) where given."""
         b, _, h, w = fmap.shape
         inner = self.heads * self.dim_head
         # under a space shard: v of the whole frame, the map's rows this shard's queries
         v = spatial.gather_rows(nhwc(self.to_v(fmap)).contiguous())
         v = v.reshape(b, -1, self.heads, self.dim_head)
         dtype = torch.promote_types(attn.dtype, v.dtype)
-        out = torch.matmul(attn.to(dtype), v.transpose(1, 2).to(dtype))  # [B, heads, N, d]
-        out = nchw(out.transpose(1, 2).reshape(b, h, w, inner))
+        agg = torch.matmul(attn.to(dtype), v.transpose(1, 2).to(dtype))  # [B, heads, N, d]
+        agg = nchw(agg.transpose(1, 2).reshape(b, h, w, inner))
         if self.project is not None:
-            out = self.project(out.to(fmap.dtype))
-        return (fmap + self.gamma * out).to(fmap.dtype)
+            agg = self.project(agg.to(fmap.dtype))
+        if out is not None:
+            return torch.add(fmap, self.gamma * agg, out=out)
+        return (fmap + self.gamma * agg).to(fmap.dtype)
 
 
 class GMAUpdateBlock(nn.Module):
@@ -176,9 +185,16 @@ class GMAUpdateBlock(nn.Module):
         self.mask = mask_head() if convex_upsampling else None
         self.aggregator = Aggregate(128, heads, 128)
 
-    def forward(self, net, inp, corr, flow, attention):
+    def buffers(self, net: torch.Tensor, inp: torch.Tensor) -> FusedBuffers:
+        """The fused path's buffers for one forward from (net, inp)."""
+        return FusedBuffers(net, inp.shape[1] + 2 * 128, 256, motion=True)
+
+    def forward(self, net, inp, corr, flow, attention, buffers: FusedBuffers | None = None):
         """-> (net, convex-upsampling mask logits or None, delta_flow), all
-        NCHW; ``attention``: the forward's map from ``Attention``."""
+        NCHW; ``attention``: the forward's map from ``Attention``. Without
+        gradient: the fused path, in ``buffers`` (as ``BasicUpdateBlock``'s)."""
+        if not torch.is_grad_enabled():
+            return fused_block(self, net, inp, corr, flow, buffers, attention)
         motion = self.encoder(flow, corr)
         motion_global = self.aggregator(attention, motion)
         net = self.gru(net, torch.cat([inp, motion, motion_global], dim=1))

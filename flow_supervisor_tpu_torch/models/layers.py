@@ -61,7 +61,14 @@ class Conv2d(nn.Conv2d):
     asymmetric for a strided conv) and convolves with no vertical padding."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv(x, None if self.bias is None else self.bias.to(x.dtype))
+
+    def raw(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv without its bias, for an epilogue that adds it
+        (kernels/update_epilogue.py)."""
+        return self._conv(x, None)
+
+    def _conv(self, x: torch.Tensor, bias) -> torch.Tensor:
         weight = self.weight.to(x.dtype)
         kh, sh, ph = self.kernel_size[0], self.stride[0], self.padding[0]
         if spatial.current() is None or (kh == 1 and sh == 1):

@@ -328,6 +328,9 @@ class RAFT(nn.Module):
         mask = (torch.zeros((b, h8, w8, 576), dtype=cfg.dtype, device=coords1.device)
                 if cfg.convex_upsampling else None)
         extra = (attention,) if self.gma else ()
+        # without gradient the block's fused path, in buffers that live for this forward
+        # (passed by position, after GMA's map, like every argument of the block)
+        extra += () if torch.is_grad_enabled() else (block.buffers(net, inp),)
         if cfg.update_ckpt and torch.is_grad_enabled():
             plain_block = block
 

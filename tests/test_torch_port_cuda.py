@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from flow_supervisor_tpu_torch.kernels import (
-    conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm,
+    conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm, update_epilogue,
 )
 from flow_supervisor_tpu_torch.ops.corr import (
     build_corr_pyramid_from_fmaps, combine_support, corr_pyramid_lookup, window_support,
@@ -911,3 +911,141 @@ def test_cuda_plane_lookup_grads_match_the_cpu(cuda, backend):
             (out * torch.from_numpy(g).to(dev)).sum(), (a, b))])
     for got, want in zip(res[1], res[0]):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+# ---- the update block's conv epilogues (csrc/update_epilogue.cu) ----------------
+
+# the inference cells' update-block grid (B=32, 448x1024 / 8) in bf16 and the
+# evaluation cell's (B=1, Sintel padded to 440x1024 / 8) in fp32
+EPILOGUE_SHAPES = [((32, 56, 128), torch.bfloat16), ((1, 55, 128), torch.float32)]
+# (c, offset, width): the conv's channels written at a channel offset of a
+# buffer `width` wide (width None: in place over the conv's output)
+EPILOGUE_ACT_CASES = [
+    (True, 1.0, 256, 0, None),  # convc1, the flow and mask heads' first convs
+    (True, 1.0, 192, 0, 256),  # convc2 into [cor | flo]
+    (True, 1.0, 64, 192, 256),  # convf2 into [cor | flo]
+    (True, 1.0, 126, 256, 384),  # the motion conv into RAFT's [h | x]: a masked tail
+    (True, 1.0, 126, 0, 128),  # the motion conv into GMA's contiguous motion
+    (False, 1.0, 2, 0, None),  # the flow head's last conv
+    (False, 0.25, 576, 0, None),  # the mask head's last conv
+    (True, 1.0, 64, 3, 80),  # a misaligned slot: the scalar body
+]
+
+
+def _epilogue_tol(dtype):
+    # bf16: 1 ulp (the kernel's and ATen's exp / tanh, and FMA, may differ in
+    # fp32's last bits, which can tip a rounding); fp32: those bits alone
+    return dict(rtol=1e-2, atol=1e-5) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-6)
+
+
+def _slot(x_shape, c, off, width, dtype, dev, gen):
+    buf = torch.randn(*x_shape[:3], width, generator=gen).to(dev, dtype)
+    return buf, buf[..., off:off + c]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", EPILOGUE_SHAPES)
+@pytest.mark.parametrize("relu,scale,c,off,width", EPILOGUE_ACT_CASES)
+@pytest.mark.parametrize("bias_f32", [True, False])  # a model held in fp32, or in the data's dtype
+def test_cuda_update_epilogue_act_matches_plain(cuda, shape, dtype, relu, scale, c, off, width,
+                                                bias_f32):
+    gen = torch.Generator().manual_seed(c + off)
+    x = torch.randn(*shape, c, generator=gen).to(cuda, dtype)
+    bias = torch.randn(c, generator=gen).to(cuda, torch.float32 if bias_f32 else dtype)
+    if width is None:
+        buf, out = None, x.clone()
+    else:
+        buf, out = _slot(x.shape, c, off, width, dtype, cuda, gen)
+    before = None if buf is None else buf.clone()
+    want = update_epilogue.bias_act_plain(x, bias, torch.empty_like(x), relu, scale)
+    n = update_epilogue.launches
+    got = update_epilogue.bias_act(out if width is None else x, bias, out, relu, scale)
+    torch.cuda.synchronize()
+    assert update_epilogue.launches == n + 1 and got.data_ptr() == out.data_ptr()
+    torch.testing.assert_close(got.float(), want.float(), **_epilogue_tol(dtype))
+    if buf is not None:  # the buffer's other channels are as they were
+        rest = torch.ones(width, dtype=torch.bool, device=cuda)
+        rest[off:off + c] = False
+        assert torch.equal(buf[..., rest], before[..., rest])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", EPILOGUE_SHAPES)
+@pytest.mark.parametrize("width", [384, 512, 131])
+@pytest.mark.parametrize("bias_f32", [True, False])
+def test_cuda_update_epilogue_gru_modes_match_plain(cuda, shape, dtype, width, bias_f32):
+    """The gate (sigmoid(z) over z, r * h into the h slot of a [h | x]
+    buffer `width` wide: RAFT's, GMA's, and a stride that takes the scalar
+    body), then the update (h' into the state, from h or in place over it,
+    and into the slot); x's channels untouched."""
+    c = 128
+    gen = torch.Generator().manual_seed(width)
+    z, r, q = (torch.randn(*shape, c, generator=gen).to(cuda, dtype) for _ in range(3))
+    bdt = torch.float32 if bias_f32 else dtype
+    bz, br, bq = (torch.randn(c, generator=gen).to(cuda, bdt) for _ in range(3))
+    h = torch.tanh(torch.randn(*shape, c, generator=gen)).to(cuda, dtype)
+    hx, slot = _slot(z.shape, c, 0, width, dtype, cuda, gen)
+    x_before = hx[..., c:].clone()
+    tol = _epilogue_tol(dtype)
+
+    zs_want, rh_want = z.clone(), torch.empty_like(z)
+    update_epilogue.gru_gate_plain(zs_want, r, bz, br, h, rh_want)
+    n = update_epilogue.launches
+    zs = update_epilogue.gru_gate(z, r, bz, br, h, slot)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(zs.float(), zs_want.float(), **tol)
+    torch.testing.assert_close(slot.float(), rh_want.float(), **tol)
+
+    for in_place in (False, True):
+        state = h.clone() if in_place else torch.empty_like(h)
+        want = torch.empty_like(h)
+        update_epilogue.gru_update_plain(q, bq, zs_want, h, want, torch.empty_like(h))
+        got = update_epilogue.gru_update(q, bq, zs_want, state if in_place else h, state, slot)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert torch.equal(slot, got)
+    assert update_epilogue.launches == n + 3
+    assert torch.equal(hx[..., c:], x_before)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_update_block_matches_its_op_chain(cuda):
+    """RAFT's and GMA's update blocks on the card, fp32 with TF32 off: the
+    fused path (no gradient, the kernel) against the op chain (under
+    gradient), two calls in one set of buffers."""
+    from flow_supervisor_tpu_torch.models import gma, update
+    from flow_supervisor_tpu_torch.models.layers import init_weights_
+
+    gen = torch.Generator().manual_seed(60)
+    blocks = [update.BasicUpdateBlock(128, 4, 4), gma.GMAUpdateBlock(128, 4, 4, 1)]
+    for blk in blocks:
+        init_weights_(blk, "update", gen)
+    with torch.no_grad():
+        blocks[1].aggregator.gamma.fill_(0.5)
+
+    def cl(t):
+        return t.to(cuda).contiguous(memory_format=torch.channels_last)
+
+    b, h8, w8 = 2, 12, 20
+    net = cl(torch.tanh(torch.randn(b, 128, h8, w8, generator=gen)))
+    inp = cl(torch.relu(torch.randn(b, 128, h8, w8, generator=gen)))
+    steps = [(cl(torch.randn(b, 324, h8, w8, generator=gen)),
+              cl(2 * torch.randn(b, 2, h8, w8, generator=gen))) for _ in range(2)]
+    attn = torch.softmax(torch.randn(b, 1, h8 * w8, h8 * w8, generator=gen), -1).to(cuda)
+    for blk, extra in zip(blocks, ((), (attn,))):
+        blk = blk.to(cuda, memory_format=torch.channels_last)
+        want, h = [], net
+        for corr, flow in steps:
+            out = blk(h, inp, corr, flow, *extra)
+            want.append([t.detach() for t in out])
+            h = out[0].detach()
+        n = update_epilogue.launches
+        with torch.no_grad():
+            buffers = blk.buffers(net, inp)
+            h = net
+            for (corr, flow), w_out in zip(steps, want):
+                out = blk(h, inp, corr, flow, *extra, buffers=buffers)
+                for g_t, w_t in zip(out, w_out):
+                    torch.testing.assert_close(g_t, w_t, rtol=1e-5, atol=1e-5)
+                h = out[0]
+        assert update_epilogue.launches == n + 2 * 13  # 13 epilogues a call

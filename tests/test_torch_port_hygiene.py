@@ -20,7 +20,8 @@ import sys, json
 import torch
 from flow_supervisor_tpu_torch.models.raft import RAFT, RAFTConfig
 from flow_supervisor_tpu_torch.kernels import (
-    _build, conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm)
+    _build, conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm,
+    update_epilogue)
 import flow_supervisor_tpu_torch.evaluation, flow_supervisor_tpu_torch.extract_flow
 import flow_supervisor_tpu_torch.profile_forward, flow_supervisor_tpu_torch.config
 import flow_supervisor_tpu_torch.training.loop, flow_supervisor_tpu_torch.training.semi
@@ -52,8 +53,9 @@ _LAUNCHES = """[corr_plane.launches, conv3x3.launches, norm.stats_launches,
     norm.apply_launches, conv3x3.bare_launches, corr_fused.all_launches,
     corr_fused.level_launches, corr_fused.bwd_df1_launches, corr_fused.bwd_df2_launches,
     corr_lookup_v2.launches, corr_lookup.launches, conv3x3.tc_launches,
-    norm.vector_launches, corr_plane.bwd_launches]"""
-N_KERNELS = 14  # twelve kernels' counters, the conv's tensor-core body, the norm's vector body
+    norm.vector_launches, corr_plane.bwd_launches, update_epilogue.launches]"""
+# thirteen kernels' counters, the conv's tensor-core body, the norm's vector body
+N_KERNELS = 15
 _LEAKED = """sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "flax", "flow_supervisor_tpu", "cv2", "optax", "orbax", "yaml", "PIL",
     "tensorflow"))"""
@@ -65,7 +67,8 @@ import numpy as np
 import torch
 from flow_supervisor_tpu_torch.config import ExperimentConfig, ModelCfg, TrainCfg
 from flow_supervisor_tpu_torch.kernels import (
-    _build, conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm)
+    _build, conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm,
+    update_epilogue)
 from flow_supervisor_tpu_torch.training.loop import train
 rng = np.random.default_rng(0)
 img = lambda s: rng.uniform(0, 1, s).astype(np.float32)
@@ -231,7 +234,8 @@ import sys, json
 from flow_supervisor_tpu_torch.data.synthetic import build_synthetic_tree
 build_synthetic_tree(ROOT)
 from flow_supervisor_tpu_torch.kernels import (
-    _build, conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm)
+    _build, conv3x3, corr_fused, corr_lookup, corr_lookup_v2, corr_plane, norm,
+    update_epilogue)
 from flow_supervisor_tpu_torch.train import main
 rc = main([CKPT, "--device", "cpu", "--stage", "semi-sintel_unsup_test-things_unsup",
            "--model_type", "raft-semi", "--lookup_backend", "fused", "--image_size", "32", "48",
